@@ -6,24 +6,44 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments,
 no install: it puts ``src/`` on the path itself).  Phases:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each);
-3. hold each kernel, and each branch of it, against its plain PyTorch
-   version on the card at the main path's shapes (full-width VGG16, batch
-   8), N = 1 and two ragged N, and time the kernel, the plain version and
-   ``torch.addmm`` of the matmul alone on the device (CUDA-graph replay),
-   and the kernel's wrapper as a caller pays it (eager calls);
+2. (Z1) build the four CUDA kernels from ``src/repro_torch/csrc``, one nvcc
+   each, all at once;
+3. hold each bottleneck kernel, and each branch of it, against its plain
+   PyTorch version on the card at the main path's shapes (full-width VGG16,
+   batch 8), N = 1, two ragged N and the llama3.2-3b cut of phase Z4, and
+   time the kernel, the plain version and ``torch.addmm`` of the matmul
+   alone on the device (CUDA-graph replay), and the kernel's wrapper as a
+   caller pays it (eager calls);
 4. serve full-width VGG16 (random weights from a fixed seed, batch 8) with a
    ``SplitRuntime`` cut at pool16, pool23 and fc0_relu, an AE and an int8
    wire at each cut, eager and fused; then an int8 split at pool16, no AE;
 5. serve 4 clients through ``run_clients`` and a 4-slot ``TailServer``;
-6. print the kernels' launch counts from phases 4-5 with their errors,
-   times and bounds as one JSON line, then ``{"ok": true, "device": ...}``.
+6. (Z2) hold ``flash_attention`` against its plain version at the
+   llama3.2-3b prefill shape and four more masks (window, non-causal,
+   Sq < Sk, ragged), each in bf16 and f32, timed beside
+   ``scaled_dot_product_attention``;
+7. (Z3) hold ``rwkv6_scan`` against its plain version at the rwkv6-1.6b
+   prefill and decode shapes and a ragged one;
+8. (Z4) serve full-width, full-depth llama3.2-3b (bf16, random weights)
+   through ``ServingEngine`` on 4 ragged prompts, 16 new tokens each, hold
+   each step's logits against a full forward over the same tokens, then cut
+   it after layer 14 with an AE and the int8 wire through
+   ``transformer_as_layered``;
+9. (Z5) serve full-width, full-depth rwkv6-1.6b the same way; then both
+   served runs again in f32, held to the f32 bar;
+10. (Z6) for each model, a full-width depth-2 f32 copy through the kernels
+    on the card against the plain versions on the CPU, same weights;
+11. print the kernels' launch counts with their errors, times and bounds as
+    one JSON line, then ``{"ok": true, "device": ...}``.
 
-Any failed check raises, so the script exits non-zero and prints no
-result.  It exits non-zero as well where CUDA is not available.
+Each path (phases 4-5, Z4, Z5, Z6) runs with the launch counts set to 0
+just before it and read just after.  Any failed check raises, so the
+script exits non-zero and prints no result.  It exits non-zero as well
+where CUDA is not available.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,23 +55,57 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import bottleneck as B  # noqa: E402
 from repro_torch.core.bottleneck import latent_channels  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ref, reset_launches  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels import bottleneck_decompress as decomp  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as RS  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.layered import transformer_as_layered  # noqa: E402
 from repro_torch.models.vgg import vgg16  # noqa: E402
 from repro_torch.runtime import wire as W  # noqa: E402
 from repro_torch.runtime.engine import SplitRuntime, run_clients  # noqa: E402
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 off the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 off the tensor cores,
+# bf16 / fp16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 BATCH = 8
 VGG_CUTS = {"relu3": 3, "pool16": 16, "pool23": 23, "flatten": 31, "fc0_relu": 33}
+# the zoo's served requests (Z4, Z5): prompt lengths, new tokens each
+LLAMA_PROMPTS = (2000, 1800, 1234, 777)
+RWKV_PROMPTS = (1000, 640, 333, 1)
+NEW_TOKENS = 16
+LLAMA_CUT_ROWS = len(LLAMA_PROMPTS) * max(LLAMA_PROMPTS)   # the (B*S, 3072) residual at the cut
 EXTRA_SHAPES = [("n1", 1, 512, 256), ("ragged_rows", 4237, 96, 48),
-                ("ragged_cols", 777, 300, 100)]
+                ("ragged_cols", 777, 300, 100), ("llama_cut14", LLAMA_CUT_ROWS, 3072, 1536)]
+# flash_attention at the llama3.2-3b prefill (B 4, S 2000, H 24, K 8, D 128)
+# and around it: (label, B, Sq, Sk, H, K, D, causal, window, dtype)
+# Each mask also in f32, where the bar (1e-5) is far below what a key off by
+# one at the window's or the alignment's edge would move.
+FLASH_SHAPES = [
+    ("llama_prefill", 4, 2000, 2000, 24, 8, 128, True, None, torch.bfloat16),
+    ("llama_f32", 4, 1000, 1000, 24, 8, 128, True, None, torch.float32),
+    ("window512", 4, 2000, 2000, 24, 8, 128, True, 512, torch.bfloat16),
+    ("window512_f32", 4, 2000, 2000, 24, 8, 128, True, 512, torch.float32),
+    ("noncausal", 4, 1000, 1000, 24, 8, 128, False, None, torch.bfloat16),
+    ("noncausal_f32", 4, 1000, 1000, 24, 8, 128, False, None, torch.float32),
+    ("sq500_sk2000", 4, 500, 2000, 24, 8, 128, True, None, torch.bfloat16),
+    ("sq500_sk2000_f32", 4, 500, 2000, 24, 8, 128, True, None, torch.float32),
+    ("ragged777", 4, 777, 777, 24, 8, 128, True, None, torch.bfloat16),
+    ("ragged777_f32", 4, 777, 777, 24, 8, 128, True, None, torch.float32),
+]
+# rwkv6_scan at the rwkv6-1.6b prefill and decode (H 32, D 64):
+# (label, B, S, H, D, nonzero initial state)
+RWKV_SHAPES = [("rwkv_prefill", 4, 1000, 32, 64, False), ("rwkv_decode", 4, 1, 32, 64, True),
+               ("ragged333", 4, 333, 32, 64, True)]
 SERVED_CUTS = (16, 23, 33)
 HEADLINE = "pool23"           # the shape whose numbers head each kernel's entry
 # Logits of the ae8 chain against the same chain through the plain versions,
@@ -59,10 +113,23 @@ HEADLINE = "pool23"           # the shape whose numbers head each kernel's entry
 # a latent that sits at a rounding tie of z / s may take the neighbouring
 # code; each such code moves the decoded activation by one step s.
 LOGIT_RTOL = 1e-2
+# Z4 / Z5: each decode step's logits against one full forward over the same
+# tokens, relative to max |logit|: within ZOO_RTOL, or within ULP_FACTOR times
+# the forward's own response to one rounding at its input (the last bit of
+# every embedding entry flipped), whichever is larger.  The decode path
+# rounds otherwise than the forward (one-token against whole-prompt products
+# on the card; on the CPU rwkv6's bf16 decode equals its forward bit for bit,
+# tests/test_torch_zoo.py), and a random-weight rwkv6-1.6b amplifies a
+# rounding some 1e5-fold through its 24 layers, so its logits cannot be held
+# tighter than that response.  A fault in the decode path moves them by far
+# more.  ULP_FACTOR: the decode-forward gap was 0.3-1.4x the response on
+# the CPU (f32, depths 2 and 6) and 0.24-0.89x on an H100 (full depth).
+ZOO_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
+ULP_FACTOR = 2.0
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -285,6 +352,342 @@ def serve(model, params, x) -> dict:
     return out
 
 
+def live_pairs(sq, sk, causal, window) -> int:
+    """Query-key pairs the mask leaves live (queries at the last Sq keys)."""
+    p = np.arange(sq) + (sk - sq)
+    hi = p if causal else np.full(sq, sk - 1)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, sk, kh, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    # as tests/test_kernels.py holds the TPU kernel to its ref
+    bar = 1e-5 if dtype == torch.float32 else 2e-2
+    if got.dtype != dtype or not torch.isfinite(got).all() or err > bar:
+        raise AssertionError(f"flash_attention at {label}: max err {err} (bar {bar})")
+    # the library yardstick: SDPA with the same mask, heads first, GQA as is
+    mask = None
+    if window is not None or (causal and sq != sk):
+        qp = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+        kp = torch.arange(sk, device="cuda")[None, :]
+        mask = (kp <= qp) if causal else torch.ones((sq, sk), dtype=torch.bool, device="cuda")
+        if window is not None:
+            mask &= kp > qp - window
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=causal and mask is None, enable_gqa=True)
+    lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
+    if lib_err > 2 * bar:
+        raise AssertionError(f"SDPA at {label} is not the same function: err {lib_err}")
+    run = lambda: FA.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+    pairs = live_pairs(sq, sk, causal, window)
+    e = {"shape": label, "B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
+         "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
+         "max_abs_err": err, "library_max_abs_err": lib_err, "live_pairs": pairs,
+         "ms": device_ms(run), "call_ms": call_ms(run),
+         "plain_ms": device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                                window=window), reps=3),
+         "library_ms": device_ms(library)}
+    nbytes = q.element_size() * (2 * b * sq * h * d + 2 * b * sk * kh * d)
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    e["bound_ms"], e["bound_by"] = bound_ms(nbytes, 4 * b * h * d * pairs, peak)
+    return e
+
+
+def check_rwkv(label, b, s, h, d, nonzero, gen) -> dict:
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (0.5 * randn(b, s, h, d) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, s, h, d) - 1.0))   # decays in (0, 1), as the model's
+    u = 0.3 * randn(h, d)
+    st = 0.2 * randn(b, h, d, d) if nonzero else torch.zeros((b, h, d, d), device="cuda")
+    want_out, want_st = ref.rwkv6_scan_ref(r, k, v, w, u, st)
+    out, final = RS.rwkv6_scan(r, k, v, w, u, st)
+    torch.cuda.synchronize()
+    err_out = float((out - want_out).abs().max())
+    err_st = float((final - want_st).abs().max())
+    top_out, top_st = float(want_out.abs().max()), float(want_st.abs().max())
+    if err_out > 1e-4 * top_out or err_st > 1e-4 * top_st:
+        raise AssertionError(f"rwkv6_scan at {label}: out err {err_out} of {top_out}, "
+                             f"state err {err_st} of {top_st}")
+    run = lambda: RS.rwkv6_scan(r, k, v, w, u, st)  # noqa: E731
+    e = {"shape": label, "B": b, "S": s, "H": h, "D": d, "initial_state": nonzero,
+         "max_abs_err": max(err_out, err_st), "out_rel_err": err_out / top_out,
+         "state_rel_err": err_st / top_st,
+         "ms": device_ms(run), "call_ms": call_ms(run),
+         "plain_ms": device_ms(lambda: ref.rwkv6_scan_ref(r, k, v, w, u, st),
+                               reps=1, replays=2),
+         "library_ms": None}
+    e["ms_per_step"] = e["ms"] / s
+    e["bound_ms"], e["bound_by"] = bound_ms(4 * (5 * b * s * h * d + 2 * b * h * d * d + h * d),
+                                            7 * b * s * h * d * d)
+    return e
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def padded(prompts) -> np.ndarray:
+    """Left-padded with token 0, as ``ServingEngine.run`` pads."""
+    toks = np.zeros((len(prompts), max(len(p) for p in prompts)), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, toks.shape[1] - len(p):] = p
+    return toks
+
+
+def ulp_flip(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every entry moved by one unit in its last place."""
+    t = t.clone()
+    t.view(torch.int16 if t.element_size() == 2 else torch.int32).bitwise_xor_(1)
+    return t
+
+
+def top2_margin(logits: torch.Tensor) -> torch.Tensor:
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def device_breakdown(fn, top=6) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: the device's busy time
+    (the union of its kernel, copy and fill intervals) against the wall
+    time, and device time by kernel name (the ``top`` largest).  The
+    profiler slows the host, so the busy share reads low."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    # "Command Buffer Full" marks the host waiting on a full launch queue
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full")
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for lo, hi, name in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+        by_name[name] = by_name.get(name, 0.0) + (hi - lo)
+    total = sum(by_name.values())
+    rows = sorted(by_name.items(), key=lambda r: -r[1])[:top]
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "busy_share": busy / wall_us,
+            "n_kernel_names": len(by_name),
+            "top": [{"kernel": k[:80], "ms": us / 1e3, "share": us / total} for k, us in rows]}
+
+
+def serve_zoo(arch, prompt_lens, kernel, want, dtype="bfloat16") -> dict:
+    """Z4 / Z5: full-width, full-depth serving of ``arch`` through
+    ``ServingEngine``; ``kernel`` must launch ``want`` times in the run.
+    The served tokens are then fed through prefill + serve_step again, and
+    the logits of each step held against one full forward over prompt +
+    served tokens (see ``ZOO_RTOL``)."""
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    out = {"arch": arch, "dtype": dtype, "init_s": time.perf_counter() - t0,
+           "param_gb": sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9,
+           "prompt_lens": list(prompt_lens), "new_tokens": NEW_TOKENS}
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    slots = max(prompt_lens) + NEW_TOKENS
+    engine = ServingEngine(cfg, params, cache_slots=slots, device="cuda")
+    reqs = [Request(i, p, max_new=NEW_TOKENS) for i, p in enumerate(prompts)]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    out["run_ms"] = 1e3 * (time.perf_counter() - t0)
+    counts = launch_counts()
+    out["launches"] = counts
+    if sum(counts[kernel].values()) != want:
+        raise AssertionError(f"{arch}: {kernel} launched {counts[kernel]}, want {want}")
+    for r in reqs:
+        if len(r.out) != NEW_TOKENS or not all(0 <= t < cfg.vocab for t in r.out):
+            raise AssertionError(f"{arch}: request {r.rid} got {r.out}")
+    out["tokens"] = [r.out for r in reqs]
+    served = torch.tensor(out["tokens"], dtype=torch.int32, device="cuda")
+
+    # the same work again, prefill and decode timed apart, fed the served
+    # tokens; each step's logits are kept
+    toks = torch.from_numpy(padded(prompts)).cuda()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, pos = T.prefill(params, cfg, {"tokens": toks}, slots)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        steps = [logits.float()]
+        t0 = time.perf_counter()
+        for step in range(NEW_TOKENS):
+            logits, cache = T.serve_step(params, cfg, cache, served[:, step:step + 1], pos + step)
+            steps.append(logits.float())
+        torch.cuda.synchronize()
+        out["decode_ms_per_token"] = 1e3 * (time.perf_counter() - t0) / NEW_TOKENS
+        del cache
+        steps = torch.stack(steps[:NEW_TOKENS], 1)            # (B, NEW_TOKENS, V)
+        if not torch.equal(steps.argmax(-1).int(), served):
+            raise AssertionError(f"{arch}: the replay's greedy tokens differ from the served")
+        if dtype == "bfloat16":
+            out["prefill_profile"] = device_breakdown(
+                lambda: T.prefill(params, cfg, {"tokens": toks}, slots))
+            _, cache, _ = T.prefill(params, cfg, {"tokens": toks}, slots)
+            out["decode_step_profile"] = device_breakdown(
+                lambda: T.serve_step(params, cfg, cache, served[:, :1], pos))
+            del cache
+        # one full forward over prompt + served tokens, and the same forward
+        # with its input moved by one rounding
+        seq = torch.cat([toks, served[:, :-1]], dim=1)
+        x = T.forward(params, cfg, {"tokens": seq})["x"][:, toks.shape[1] - 1:]
+        flogits = T.logits_from_x(params, cfg, x).float()
+        flipped = {**params, "embed": ulp_flip(params["embed"])}
+        x = T.forward(flipped, cfg, {"tokens": seq})["x"][:, toks.shape[1] - 1:]
+        ulp_err = float((T.logits_from_x(flipped, cfg, x).float() - flogits).abs().max())
+        del flipped, x
+    top = float(flogits.abs().max())
+    row_err = (steps - flogits).abs().amax(-1)                 # (B, NEW_TOKENS)
+    rel = float(row_err.max()) / top
+    bar = max(ZOO_RTOL[dtype], ULP_FACTOR * ulp_err / top)
+    differ = flogits.argmax(-1) != served.long()
+    margins = top2_margin(flogits)
+    out["vs_forward"] = {"prefill_rel_err": float(row_err[:, 0].max()) / top,
+                         "decode_rel_err": float(row_err[:, 1:].max()) / top,
+                         "one_ulp_input_response": ulp_err / top, "bar": bar,
+                         "max_abs_logit": top,
+                         "tokens_compared": int(differ.numel()),
+                         "tokens_differ": int(differ.sum()),
+                         "differ_margins_rel": (margins[differ] / top).tolist(),
+                         "min_margin_rel": float(margins.min()) / top}
+    if not torch.isfinite(steps).all() or rel > bar:
+        raise AssertionError(f"{arch} {dtype}: step logits off the forward's by {rel} of "
+                             f"max |logit| (bar {bar})")
+    # a token may differ only where the forward's top two lie closer than
+    # twice the step's own logit error
+    if bool((differ & (margins > 2 * row_err)).any()):
+        raise AssertionError(f"{arch} {dtype}: served tokens differ from the forward's at "
+                             f"margins {margins[differ].tolist()}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if arch.startswith("llama") and dtype == "bfloat16":
+        out["split"] = split_lens(cfg, params, toks)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def split_lens(cfg, params, toks) -> dict:
+    """Z4's split: the twin of examples/serve_split.py.  Cut the served batch
+    at the middle block boundary, compress the residual through the
+    bottleneck kernels, decode it and run the tail."""
+    lay = transformer_as_layered(cfg, params)
+    cuts = lay.cut_points()
+    cut = cuts[len(cuts) // 2]
+    ae = B.init_bottleneck(7, (cfg.d_model,), 0.5, device="cuda")
+    reset_launches()
+    with torch.inference_mode():
+        x = lay.layers[0].apply({}, {"tokens": toks})
+        for layer in lay.layers[1:cut + 1]:
+            x = layer.apply({}, x)
+        q, s = B.encode_wire(ae, x)
+        y = B.decode_wire(ae, q, s).to(x.dtype)
+        for layer in lay.layers[cut + 1:-1]:
+            y = layer.apply({}, y)
+        logits = lay.layers[-1].apply({}, y[:, -1:])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if not torch.isfinite(logits.float()).all() or logits.shape != (toks.shape[0], 1, cfg.vocab):
+        raise AssertionError(f"split logits {tuple(logits.shape)} not finite")
+    if (counts["flash_attention"]["tiled"] != cfg.n_layers
+            or sum(counts["bottleneck_compress"].values()) != 1
+            or counts["bottleneck_decompress"]["tiled"] != 1):
+        raise AssertionError(f"split launches {counts}")
+    with torch.inference_mode():
+        encode_ms = device_ms(lambda: B.encode_wire(ae, x))
+        decode_ms = device_ms(lambda: B.decode_wire(ae, q, s))
+    return {"cut_after_layer": cut, "layer_name": lay.layers[cut].name,
+            "rows": int(q.shape[0] * q.shape[1]), "d_model": cfg.d_model,
+            "latent": int(q.shape[-1]), "wire_bytes": q.numel() + 4 * s.numel(),
+            "raw_bytes": x.numel() * x.element_size(), "launches": counts,
+            "encode_wire_ms": encode_ms, "decode_wire_ms": decode_ms}
+
+
+def e2e_check(arch, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> dict:
+    """Z6: a full-width depth-2 f32 copy of ``arch`` through the kernels on
+    the card and through the plain versions on the CPU, same weights."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    params_cpu = T.init_params(0, cfg, device="cpu")
+    params_gpu = tree_to(params_cpu, "cuda")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(padded([rng.integers(0, cfg.vocab, n).astype(np.int32)
+                                    for n in prompt_lens]))
+    slots = toks.shape[1] + n_new
+
+    def greedy_run(params, dev):
+        with torch.inference_mode():
+            logits, cache, pos = T.prefill(params, cfg, {"tokens": toks.to(dev)}, slots)
+            steps = [logits.float().cpu()]
+            for step in range(n_new):
+                token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+                logits, cache = T.serve_step(params, cfg, cache, token, pos + step)
+                steps.append(logits.float().cpu())
+        return torch.stack(steps, 1)           # (B, n_new + 1, V)
+
+    reset_launches()
+    got = greedy_run(params_gpu, "cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = greedy_run(params_cpu, "cpu")
+    kernel = "flash_attention" if cfg.family == "dense" else "rwkv6_scan"
+    if sum(counts[kernel].values()) == 0:
+        raise AssertionError(f"Z6 {arch}: {kernel} was not launched")
+    top = float(want[:, 0].abs().max())
+    prefill_err = float((got[:, 0] - want[:, 0]).abs().max()) / top
+    if prefill_err > rtol:
+        raise AssertionError(f"Z6 {arch}: prefill logits off by {prefill_err} of max (bar {rtol})")
+    # greedy tokens, request by request, as long as both histories agree
+    compared, step_err, diverged = 0, 0.0, []
+    for i in range(toks.shape[0]):
+        for t in range(n_new + 1):
+            g, w = got[i, t], want[i, t]
+            step_err = max(step_err, float((g - w).abs().max()) / float(w.abs().max()))
+            compared += 1
+            if int(g.argmax()) != int(w.argmax()):
+                margin = float(top2_margin(w))
+                if margin > rtol * float(w.abs().max()):
+                    raise AssertionError(f"Z6 {arch}: request {i} step {t} token differs "
+                                         f"at margin {margin}")
+                diverged.append((i, t, margin))
+                break
+    if step_err > rtol:
+        raise AssertionError(f"Z6 {arch}: decode logits off by {step_err} of max (bar {rtol})")
+    del params_gpu
+    torch.cuda.empty_cache()
+    return {"arch": arch, "n_layers": 2, "dtype": "float32", "prompt_lens": list(prompt_lens),
+            "new_tokens": n_new, "prefill_rel_err": prefill_err, "step_rel_err": step_err,
+            "tokens_compared": compared, "diverged_at_near_ties": diverged, "launches": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -298,7 +701,7 @@ def main() -> int:
     print(card, flush=True)
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
 
-    # phase 2
+    # phase 2 (Z1)
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
@@ -327,34 +730,79 @@ def main() -> int:
     x = torch.randn((BATCH, 224, 224, 3), generator=torch.Generator().manual_seed(0)).cuda()
     reset_launches()
     served = serve(model, params, x)
-    counts = launch_counts()
+    vgg_counts = launch_counts()
     print("served", json.dumps(served), flush=True)
-    for kernel, by_branch in counts.items():
-        for br, n in by_branch.items():
+    for kernel in ("bottleneck_compress", "bottleneck_decompress"):
+        for br, n in vgg_counts[kernel].items():
             if n == 0:
                 raise AssertionError(f"{kernel}[{br}] was not launched on the served path")
+    del model, params, x
+    torch.cuda.empty_cache()
 
-    # phase 6
-    def entry(name, rows, replaces):
-        head = next(e for e in rows if e["shape"] == HEADLINE)
+    # Z2, Z3: the zoo's kernels against their plain versions
+    flash_rows = []
+    for label, *shape in FLASH_SHAPES:
+        flash_rows.append(check_flash(label, *shape, gen))
+        print("flash_attention", json.dumps(flash_rows[-1]), flush=True)
+        torch.cuda.empty_cache()
+    rwkv_rows = []
+    for label, *shape in RWKV_SHAPES:
+        rwkv_rows.append(check_rwkv(label, *shape, gen))
+        print("rwkv6_scan", json.dumps(rwkv_rows[-1]), flush=True)
+
+    # Z4, Z5: full-width serving, counted; Z6: kernels against the plain path
+    # flash_attention once a layer in the prefill (decode attention is plain);
+    # rwkv6_scan once a layer in the prefill and in every decode step
+    llama = serve_zoo("llama3.2-3b", LLAMA_PROMPTS, "flash_attention",
+                      get_config("llama3.2-3b").n_layers)
+    print("served llama3.2-3b", json.dumps(llama), flush=True)
+    rwkv = serve_zoo("rwkv6-1.6b", RWKV_PROMPTS, "rwkv6_scan",
+                     get_config("rwkv6-1.6b").n_layers * (1 + NEW_TOKENS))
+    print("served rwkv6-1.6b", json.dumps(rwkv), flush=True)
+    # the same two served runs in f32, held to the f32 bar
+    for arch, prompts, kernel, want in (
+            ("llama3.2-3b", LLAMA_PROMPTS, "flash_attention", get_config("llama3.2-3b").n_layers),
+            ("rwkv6-1.6b", RWKV_PROMPTS, "rwkv6_scan",
+             get_config("rwkv6-1.6b").n_layers * (1 + NEW_TOKENS))):
+        print(f"served {arch} float32",
+              json.dumps(serve_zoo(arch, prompts, kernel, want, dtype="float32")), flush=True)
+    e2e = [e2e_check(arch) for arch in ("llama3.2-3b", "rwkv6-1.6b")]
+    print("end to end", json.dumps(e2e), flush=True)
+
+    # the kernels line: launches from each kernel's main path
+    paths = {"bottleneck_compress": ("vgg16 phases 4-5", vgg_counts),
+             "bottleneck_decompress": ("vgg16 phases 4-5", vgg_counts),
+             "flash_attention": ("Z4 llama3.2-3b ServingEngine.run", llama["launches"]),
+             "rwkv6_scan": ("Z5 rwkv6-1.6b ServingEngine.run", rwkv["launches"])}
+    also = {"Z4 split": llama["split"]["launches"], "Z6 llama3.2-3b": e2e[0]["launches"],
+            "Z6 rwkv6-1.6b": e2e[1]["launches"]}
+
+    def entry(name, rows, replaces, headline):
+        head = next(e for e in rows if e["shape"] == headline)
+        path, counts = paths[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": sum(counts[name].values()),
-                "launches_by_branch": counts[name],
+                "launches_on": path, "launches_by_branch": counts[name],
+                "launches_elsewhere": {k: sum(c[name].values()) for k, c in also.items()},
                 "max_abs_err": max(e["max_abs_err"] for e in rows),
                 "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-                "at": HEADLINE, "shapes": rows}
+                "at": headline, "shapes": rows}
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        entry("bottleneck_compress", comp_rows, "src/repro/kernels/bottleneck_compress.py:80"),
-        entry("bottleneck_decompress", dec_rows,
-              "src/repro/kernels/bottleneck_decompress.py:41")]}), flush=True)
+        entry("bottleneck_compress", comp_rows, "src/repro/kernels/bottleneck_compress.py:80",
+              HEADLINE),
+        entry("bottleneck_decompress", dec_rows, "src/repro/kernels/bottleneck_decompress.py:41",
+              HEADLINE),
+        entry("flash_attention", flash_rows, "src/repro/kernels/flash_attention.py:86",
+              "llama_prefill"),
+        entry("rwkv6_scan", rwkv_rows, "src/repro/kernels/rwkv6_scan.py:56", "rwkv_prefill"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

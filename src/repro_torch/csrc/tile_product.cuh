@@ -11,6 +11,8 @@
 
 #include <cuda_runtime.h>
 
+#include "kernel_error.cuh"
+
 namespace sei {
 
 // Thread t of the block owns rows ty + i * kThreadsY (i < TM) and columns
@@ -90,7 +92,3 @@ __device__ __forceinline__ float row_scale(float amax) {
 }
 
 }  // namespace sei
-
-extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -1,0 +1,91 @@
+"""Online-softmax attention: causal and/or sliding window, GQA.
+
+Replaces the TPU kernel ``flash_attention``
+(``repro/kernels/flash_attention.py:86``, ``pl.pallas_call`` at ``:106``)
+with the CUDA C++ kernel in ``csrc/flash_attention.cu`` for ``sm_90a``.
+
+Bound on an H100: the bytes of q, k, v and the output once at 3.35 TB/s
+against ``4*B*H*D*(live query-key pairs)`` operations at 989 TFLOP/s (bf16
+inputs) or 67 TFLOP/s (f32 inputs).  The kernel computes in f32 FMA on the
+CUDA cores, as the TPU kernel computes in f32, one block per (batch * head,
+64-query tile) with a loop over 64-key tiles inside it; key tiles no query
+of the tile can see are skipped.  Any Sq <= Sk: the ragged edge is masked.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+# launches of the CUDA kernel (a CPU call launches nothing)
+launches = {"tiled": 0}
+
+# what the dense configurations use: head dim 128, in float32 or bfloat16
+HEAD_DIMS = (128,)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "flash_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _P], _I),
+}
+
+
+def _check_inputs(q, k, v, window) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"want q (B, Sq, H, D), k and v (B, Sk, K, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    sk, kh = k.shape[1], k.shape[2]
+    if kh == 0 or h % kh:
+        raise ValueError(f"{h} query heads do not split over {kh} kv heads")
+    if sq > sk:
+        raise ValueError(f"queries sit at the last Sq of Sk key positions: Sq {sq} > Sk {sk}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise TypeError(f"q, k, v must share one of {list(DTYPES)}; {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0 and Sq <= Sk.
+    Returns (B, Sq, H, D) in q's dtype; the math is f32.
+
+    A CPU tensor goes to :func:`flash_attention_ref`; a CUDA tensor launches
+    the kernel on the current stream, or raises.
+    """
+    _check_inputs(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        lib = _build.load("flash_attention", _SIGNATURES)
+        code = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
+            b, sq, sk, h, kh, d, int(causal), window or 0, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, code, "flash_attention")
+    launches["tiled"] += 1
+    return out

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the bottleneck kernels (twin of
-``repro/kernels/ref.py:33-59``).
+"""Plain PyTorch versions of the port's kernels (twin of
+``repro/kernels/ref.py``: the bottleneck oracles at ``:33-59``,
+``flash_attention_ref`` at ``:11`` and ``rwkv6_scan_ref`` at ``:62``).
 
 The kernel wrappers use them for tensors on the CPU, the tests hold them
 against the JAX package's Pallas kernels, and ``chip_smoke.py`` holds the
@@ -7,7 +8,54 @@ CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Plain softmax attention with GQA.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0.  Queries sit at
+    the last Sq key positions.  f32 math, output in q's dtype.
+    """
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    k = torch.repeat_interleave(k, g, dim=2)
+    v = torch.repeat_interleave(v, g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    qp = torch.arange(sq, device=q.device)[:, None] + (sk - sq)   # aligned last positions
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def rwkv6_scan_ref(r, k, v, w, u, state):
+    """Sequential WKV-6 recurrence, a Python loop over time.
+
+    r, k, v, w: (B, S, H, D) f32; u: (H, D); state: (B, H, D, D).
+    out_t = r_t . (S + u*k_t v_t^T);  S <- diag(w_t) S + k_t v_t^T.
+    Returns (out (B, S, H, D), final state (B, H, D, D)).
+    """
+    s = state
+    outs = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        kv = kt[..., :, None] * vt[..., None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt, s + u[..., None] * kv))
+        s = wt[..., None] * s + kv
+    return torch.stack(outs, dim=1), s
 
 
 def bottleneck_compress_ref(f, w, b, *, scale: float = 127.0):

@@ -69,3 +69,42 @@ class LayeredModel:
         x = torch.empty((batch,) + tuple(self.input_shape), device="meta")
         _, acts = self.apply_capture(meta, x)
         return [tuple(a.shape) for a in acts]
+
+
+def transformer_as_layered(cfg, params) -> LayeredModel:
+    """Per-block LayeredModel view of a zoo model (twin of
+    ``repro/models/layered.py:93``), for splitting it.
+
+    Cuts are legal only at block boundaries: never inside a recurrence or
+    an attention op.  Layer 0 is the embedding (its input is the batch
+    dict); the final norm and the head are the last layer, which is not a
+    legal cut (a cut there is RC-equivalent).  The layers close over
+    ``params``; their own parameter entries are empty.
+    """
+    from repro_torch.models import transformer as T
+
+    descs, n_groups = T.block_structure(cfg)
+    layers = [Layer(name="embed", kind="embed", init=lambda gen, dev: {},
+                    apply=lambda p, batch: T.embed_inputs(params, cfg, batch)[0])]
+
+    def make_block(g, j, desc):
+        lp = T._group(params["layers"], g)[f"l{j}"]
+
+        def apply(p, x):
+            positions = torch.arange(x.shape[1], device=x.device)
+            y, _, _ = T.apply_layer_seq(lp, desc, x, cfg, positions, causal=True,
+                                        window=cfg.sliding_window)
+            return y
+        return Layer(name=f"block{g * len(descs) + j}", kind="block",
+                     init=lambda gen, dev: {}, apply=apply)
+
+    for g in range(n_groups):
+        for j, desc in enumerate(descs):
+            layers.append(make_block(g, j, desc))
+
+    def head_apply(p, x):
+        return T.logits_from_x(params, cfg, T._apply_norm(params["final_norm"], x, cfg))
+
+    layers.append(Layer(name="head", kind="head", init=lambda gen, dev: {},
+                        apply=head_apply, splittable=False))
+    return LayeredModel(name=cfg.name, layers=layers, input_shape=(), n_classes=cfg.vocab)

@@ -1,0 +1,141 @@
+"""Shared transformer primitives: RMSNorm, RoPE, GQA attention, SwiGLU MLP
+(twin of ``repro/models/layers.py``).
+
+Parameters are plain dicts of tensors in the reference's layouts: dense
+weights are (in, out), q/k/v are (B, S, H, D).  Self-attention over a
+sequence goes through ``ops.attention_op``, the ``flash_attention`` kernel
+on the card; one-token decode attention stays plain PyTorch, as the
+reference computes it outside any Pallas kernel.  ``layernorm`` and
+``gelu_mlp`` (encoder-decoder) wait for ROADMAP A13.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------- norms ----
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+# ----------------------------------------------------------------- rope ----
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
+    """cos/sin tables for the given absolute positions: (..., head_dim//2)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,H,D); cos/sin: (B,S,D/2) or (S,D/2)."""
+    dt = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    if cos.dim() == 2:  # (S, D/2) -> broadcast over batch
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:               # (B, S, D/2)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(dt)
+
+
+# ------------------------------------------------------------ attention ----
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B,S,K,D) -> (B,S,K*n_rep,D) by repeating each kv head."""
+    if n_rep == 1:
+        return k
+    b, s, kh, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, kh, n_rep, d).reshape(b, s, kh * n_rep, d)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Multi-head GQA self-attention over a sequence.
+
+    q: (B,Sq,H,D); k,v: (B,Sk,K,D) with H % K == 0.  Returns (B,Sq,H,D).
+    The kernel takes the kv heads as they are (no ``repeat_kv``) and keeps
+    the softmax weights in f32 throughout; the reference's chunked path
+    (Sq*Sk > 512**2) rounds them to the input dtype before the P.V product,
+    so in bf16 the two differ by that rounding.  As the reference's plain
+    path, a single query is not causally masked: it sits at the last key
+    position, so the mask would change nothing.
+    """
+    return ops.attention_op(q, k, v, causal=causal and q.shape[1] > 1, window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     kv_pos: torch.Tensor, q_pos: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: (B,1,H,D); caches: (B,S,K,D); kv_pos: (B,S) absolute position of every
+    cache slot (-1 for empty; ring buffers permute positions arbitrarily);
+    q_pos: (B,) absolute position of the new token.
+    """
+    b, _, h, d = q.shape
+    kh = k_cache.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, kh, g, d).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window is not None:
+        valid &= kv_pos > (q_pos[:, None] - window)
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------- linear ----
+def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def swiglu(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """SwiGLU MLP: p = {w_gate, w_up, w_down}."""
+    return dense(F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"]), p["w_down"])
+
+
+# ------------------------------------------------------------------ init ----
+def init_dense(gen, fan_in: int, fan_out: int, dtype, device) -> torch.Tensor:
+    std = 1.0 / math.sqrt(fan_in)
+    w = torch.randn((fan_in, fan_out), generator=gen, dtype=torch.float32, device=device)
+    return (w * std).to(dtype)
+
+
+def init_attn(gen, cfg, device) -> dict:
+    """GQA attention params (cross-attention waits for ROADMAP A13)."""
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.tdtype
+    p = {
+        "wq": init_dense(gen, d, h * hd, dt, device),
+        "wk": init_dense(gen, d, kh * hd, dt, device),
+        "wv": init_dense(gen, d, kh * hd, dt, device),
+        "wo": init_dense(gen, h * hd, d, dt, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * hd,), dtype=dt, device=device)
+        p["bk"] = torch.zeros((kh * hd,), dtype=dt, device=device)
+        p["bv"] = torch.zeros((kh * hd,), dtype=dt, device=device)
+    return p
+
+
+def init_swiglu(gen, d_model: int, d_ff: int, dtype, device) -> dict:
+    return {"w_gate": init_dense(gen, d_model, d_ff, dtype, device),
+            "w_up": init_dense(gen, d_model, d_ff, dtype, device),
+            "w_down": init_dense(gen, d_ff, d_model, dtype, device)}

@@ -1,0 +1,358 @@
+"""The zoo's model definition for the ``dense`` and ``ssm`` families (twin
+of ``repro/models/transformer.py``).
+
+* ``forward(params, cfg, batch)``      — full-sequence (prefill)
+* ``serve_step(params, cfg, cache,…)`` — one-token decode against a cache
+
+Parameters keep the reference's group-stacked tree: every leaf under
+``params["layers"]`` has a leading group axis.  Where the reference scans
+over groups with ``jax.lax.scan``, the port runs a Python loop over them.
+The MoE, Mamba, cross-attention, encoder and VLM branches raise
+``NotImplementedError`` until ROADMAP A13 ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import (apply_rope, attention, decode_attention, dense,
+                                       init_attn, init_dense, init_swiglu, rmsnorm,
+                                       rope_tables, swiglu)
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A13)")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerDesc:
+    mixer: str        # 'attn' | 'mamba' | 'rwkv'
+    ffn: str          # 'dense' | 'moe' | 'none'
+    cross: bool = False
+
+
+def block_structure(cfg: ModelConfig) -> tuple[list[LayerDesc], int]:
+    """(descs for one period, n_groups)."""
+    if cfg.family == "ssm":
+        return [LayerDesc("rwkv", "none")], cfg.n_layers
+    period = cfg.attn_period if cfg.attn_period > 0 else 1
+    if cfg.moe is not None:
+        period = max(period, cfg.moe.moe_every)
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.n_layers} layers are not whole periods of {period}")
+    descs = []
+    for j in range(period):
+        mixer = "attn" if cfg.is_attn_layer(j) else "mamba"
+        ffn = "moe" if cfg.is_moe_layer(j) else "dense"
+        descs.append(LayerDesc(mixer, ffn, cross=cfg.family == "encdec"))
+    return descs, cfg.n_layers // period
+
+
+def _norm_params(d, dtype, device):
+    return {"w": torch.ones((d,), dtype=dtype, device=device),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def _apply_norm(p, x, cfg):
+    if cfg.family == "encdec":
+        raise _unported("layernorm (encoder-decoder)")
+    return rmsnorm(x, p["w"], cfg.norm_eps)
+
+
+def _group(tree, g: int):
+    """The parameters (or cache) of group ``g``: views into the stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _group(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+# ------------------------------------------------------------------ init ----
+def init_layer(gen, desc: LayerDesc, cfg: ModelConfig, device) -> dict:
+    d, dt = cfg.d_model, cfg.tdtype
+    p = {"norm1": _norm_params(d, dt, device), "norm2": _norm_params(d, dt, device)}
+    if desc.mixer == "attn":
+        p["attn"] = init_attn(gen, cfg, device)
+    elif desc.mixer == "mamba":
+        raise _unported("the Mamba mixer")
+    else:  # rwkv
+        p["tm"] = rwkv_mod.init_time_mix(gen, cfg, device)
+        p["cm"] = rwkv_mod.init_channel_mix(gen, cfg, device)
+    if desc.cross:
+        raise _unported("cross-attention")
+    if desc.ffn == "dense":
+        p["ffn"] = init_swiglu(gen, d, cfg.d_ff, dt, device)
+    elif desc.ffn == "moe":
+        raise _unported("the MoE FFN")
+    return p
+
+
+def _init_tree(gen, cfg: ModelConfig, device) -> dict:
+    if cfg.family in ("encdec", "vlm"):
+        raise _unported(f"the {cfg.family} family")
+    descs, n_groups = block_structure(cfg)
+    d, dt = cfg.d_model, cfg.tdtype
+
+    def one_group():
+        return {f"l{j}": init_layer(gen, descs[j], cfg, device) for j in range(len(descs))}
+
+    def stack(*trees):
+        if isinstance(trees[0], dict):
+            return {k: stack(*(t[k] for t in trees)) for k in trees[0]}
+        return torch.stack(trees)
+
+    embed = torch.randn((cfg.vocab, d), generator=gen, dtype=torch.float32, device=device)
+    params = {
+        "embed": (embed * 0.02).to(dt),
+        "final_norm": _norm_params(d, dt, device),
+        "layers": stack(*[one_group() for _ in range(n_groups)]),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = init_dense(gen, d, cfg.vocab, dt, device)
+    return params
+
+
+def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
+    """Random parameters in the reference's tree, from a ``torch.Generator``
+    seeded with ``seed``, made on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return _init_tree(gen, cfg, dev)
+
+
+def param_spec(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``cfg`` as ``meta`` tensors: shapes and dtypes,
+    no memory."""
+    return _init_tree(None, cfg, torch.device("meta"))
+
+
+# ----------------------------------------------------------- full-seq fwd ----
+def _qkv(p, x, cfg):
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads, hd)
+    k = dense(x, p["wk"], p.get("bk")).reshape(b, s, cfg.n_kv_heads, hd)
+    v = dense(x, p["wv"], p.get("bv")).reshape(b, s, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def _attn_seq(p, x, cfg, positions, *, causal, window):
+    q, k, v = _qkv(p, x, cfg)
+    cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    out = attention(q, k, v, causal=causal, window=window)
+    b, s = x.shape[0], x.shape[1]
+    return dense(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"]), (k, v)
+
+
+def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
+                    window=None, collect_cache=False):
+    """One sublayer over a full sequence.  Returns (x, aux, cache_entry)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cache = {}
+    h = _apply_norm(p["norm1"], x, cfg)
+    if desc.mixer == "attn":
+        att, (k, v) = _attn_seq(p["attn"], h, cfg, positions, causal=causal, window=window)
+        if collect_cache:
+            cache["k"], cache["v"] = k, v
+    elif desc.mixer == "mamba":
+        raise _unported("the Mamba mixer")
+    else:  # rwkv: norm1 -> time-mix
+        st = rwkv_mod.init_state(cfg, x.shape[0], x.dtype, x.device)
+        att, tm_prev, wkv = rwkv_mod.time_mix(p["tm"], h, st["tm_prev"], st["wkv"], cfg)
+        if collect_cache:
+            cache["tm_prev"], cache["wkv"] = tm_prev, wkv
+    x = x + att
+    if desc.cross:
+        raise _unported("cross-attention")
+    h = _apply_norm(p["norm2"], x, cfg)
+    if desc.ffn == "dense":
+        f = swiglu(h, p["ffn"])
+    elif desc.ffn == "moe":
+        raise _unported("the MoE FFN")
+    else:  # rwkv channel mix
+        f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, torch.zeros_like(h[:, 0]))
+        if collect_cache:
+            cache["cm_prev"] = cm_prev
+    return x + f, aux, cache
+
+
+def embed_inputs(params, cfg, batch):
+    """Token embedding -> (x (B,S,D), positions (S,), enc_out=None)."""
+    if cfg.family in ("vlm", "encdec"):
+        raise _unported(f"the {cfg.family} frontend")
+    tokens = batch["tokens"]
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(x.shape[1], device=x.device)
+    return x, positions, None
+
+
+def forward(params, cfg: ModelConfig, batch: dict, *, collect_cache=False):
+    """Full-sequence forward.  batch: tokens (B,S) on the parameters' device.
+
+    Returns dict(x=final-normed (B,S,D), aux, cache=group-stacked cache or
+    None, positions).
+    """
+    descs, n_groups = block_structure(cfg)
+    x, positions, _ = embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = [dict() for _ in descs]
+    for g in range(n_groups):
+        group_p = _group(params["layers"], g)
+        for j, desc in enumerate(descs):
+            x, a, c = apply_layer_seq(group_p[f"l{j}"], desc, x, cfg, positions, causal=True,
+                                      window=cfg.sliding_window, collect_cache=collect_cache)
+            aux = aux + a
+            for key, t in c.items():
+                caches[j].setdefault(key, []).append(t)
+    x = _apply_norm(params["final_norm"], x, cfg)
+    cache = None
+    if collect_cache:
+        cache = {f"l{j}": {key: torch.stack(ts) for key, ts in c.items()}
+                 for j, c in enumerate(caches)}
+    return {"x": x, "aux": aux, "cache": cache, "positions": positions}
+
+
+def logits_from_x(params, cfg, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return x @ head
+
+
+# ------------------------------------------------------------------ cache ----
+def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
+               device="cuda") -> dict:
+    """Empty decode cache (group-stacked leading dim)."""
+    dev = resolve_device(device)
+    descs, n_groups = block_structure(cfg)
+    dt = dtype or cfg.tdtype
+    sc = cache_len_for(cfg, seq_len)
+    hd = cfg.hd
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def per_layer(desc: LayerDesc):
+        c = {}
+        if desc.mixer == "attn":
+            c["k"] = zeros((n_groups, batch, sc, cfg.n_kv_heads, hd), dt)
+            c["v"] = zeros((n_groups, batch, sc, cfg.n_kv_heads, hd), dt)
+            c["kv_pos"] = torch.full((n_groups, batch, sc), -1, dtype=torch.int32, device=dev)
+        elif desc.mixer == "mamba":
+            raise _unported("the Mamba cache")
+        else:  # rwkv
+            nh = cfg.d_model // cfg.rwkv_head_dim
+            c["tm_prev"] = zeros((n_groups, batch, cfg.d_model), torch.float32)
+            c["cm_prev"] = zeros((n_groups, batch, cfg.d_model), torch.float32)
+            c["wkv"] = zeros((n_groups, batch, nh, cfg.rwkv_head_dim, cfg.rwkv_head_dim),
+                             torch.float32)
+        if desc.cross:
+            raise _unported("the cross-attention cache")
+        return c
+
+    return {f"l{j}": per_layer(d) for j, d in enumerate(descs)}
+
+
+def _attn_decode(p, h, cfg, cache_l, pos, window):
+    """h: (B,1,D); cache_l: {'k','v','kv_pos'} (B,Sc,K,hd), written in place."""
+    b = h.shape[0]
+    hd = cfg.hd
+    q = dense(h, p["wq"], p.get("bq")).reshape(b, 1, cfg.n_heads, hd)
+    k = dense(h, p["wk"], p.get("bk")).reshape(b, 1, cfg.n_kv_heads, hd)
+    v = dense(h, p["wv"], p.get("bv")).reshape(b, 1, cfg.n_kv_heads, hd)
+    cos, sin = rope_tables(torch.tensor([pos], device=h.device), hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    # the reference writes slot pos % sc with dynamic_update_slice into a new
+    # cache; the port writes the same slot of the one cache in place
+    slot = pos % cache_l["k"].shape[1]
+    cache_l["k"][:, slot] = k[:, 0]
+    cache_l["v"][:, slot] = v[:, 0]
+    cache_l["kv_pos"][:, slot] = pos
+    q_pos = torch.full((b,), pos, dtype=torch.int32, device=h.device)
+    out = decode_attention(q, cache_l["k"], cache_l["v"], cache_l["kv_pos"], q_pos, window)
+    return dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
+
+
+def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
+    """One sublayer over one token; ``cache_l`` (this group's views) is
+    updated in place."""
+    h = _apply_norm(p["norm1"], x, cfg)
+    if desc.mixer == "attn":
+        att = _attn_decode(p["attn"], h, cfg, cache_l, pos, window)
+    elif desc.mixer == "mamba":
+        raise _unported("the Mamba mixer")
+    else:
+        att, tm_prev, wkv = rwkv_mod.time_mix(
+            p["tm"], h, cache_l["tm_prev"].to(h.dtype), cache_l["wkv"], cfg)
+        cache_l["tm_prev"].copy_(tm_prev)
+        cache_l["wkv"].copy_(wkv)
+    x = x + att
+    if desc.cross:
+        raise _unported("cross-attention")
+    h = _apply_norm(p["norm2"], x, cfg)
+    if desc.ffn == "dense":
+        f = swiglu(h, p["ffn"])
+    elif desc.ffn == "moe":
+        raise _unported("the MoE FFN")
+    else:
+        f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, cache_l["cm_prev"].to(h.dtype))
+        cache_l["cm_prev"].copy_(cm_prev)
+    return x + f
+
+
+def serve_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor, pos: int):
+    """One decode step.  token: (B,1) int; pos: the new token's position.
+
+    Returns (logits (B,V) f32, cache).  Unlike the reference, which returns
+    a new cache, the port updates ``cache`` in place and returns it.
+    """
+    descs, n_groups = block_structure(cfg)
+    pos = int(pos)
+    x = params["embed"][token.long()]
+    for g in range(n_groups):
+        group_p, cache_g = _group(params["layers"], g), _group(cache, g)
+        for j, desc in enumerate(descs):
+            x = apply_layer_decode(group_p[f"l{j}"], desc, x, cfg, cache_g[f"l{j}"], pos,
+                                   cfg.sliding_window)
+    x = _apply_norm(params["final_norm"], x, cfg)
+    logits = logits_from_x(params, cfg, x)[:, 0, :]
+    return logits.float(), cache
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, cache_seq_len: int):
+    """Run the full prompt, build a decode cache of ``cache_seq_len`` slots.
+
+    Returns (last-token logits (B,V), cache, next_pos).
+    """
+    out = forward(params, cfg, batch, collect_cache=True)
+    x = out["x"]
+    s_in = x.shape[1]
+    logits = logits_from_x(params, cfg, x[:, -1:, :])[:, 0, :]
+    raw = out["cache"]
+    descs, n_groups = block_structure(cfg)
+    cache = init_cache(cfg, x.shape[0], cache_seq_len, device=x.device)
+    sc = cache_len_for(cfg, cache_seq_len)
+    for j, desc in enumerate(descs):
+        cj, rj = cache[f"l{j}"], raw[f"l{j}"]
+        if desc.mixer == "attn":
+            take = min(sc, s_in)
+            src_pos = torch.arange(s_in - take, s_in, device=x.device)
+            slots = src_pos % sc
+            cj["k"][:, :, slots] = rj["k"][:, :, s_in - take:]
+            cj["v"][:, :, slots] = rj["v"][:, :, s_in - take:]
+            cj["kv_pos"][:, :, slots] = src_pos.to(torch.int32)
+        else:
+            cj["tm_prev"].copy_(rj["tm_prev"])
+            cj["cm_prev"].copy_(rj["cm_prev"])
+            cj["wkv"].copy_(rj["wkv"])
+    return logits, cache, s_in
+

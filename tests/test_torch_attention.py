@@ -1,0 +1,170 @@
+"""The port's flash attention (its plain version on the CPU) and attention
+layers against the JAX package: the Pallas kernel in interpret mode, its
+``ref`` oracle and ``repro.models.layers``."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels import launch_counts, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+
+# tests/test_kernels.py's FLASH_CASES: b, sq, sk, h, kh, d, causal, window, dtype
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 64, True, None, "float32"),
+    (1, 128, 512, 4, 4, 128, True, None, "float32"),
+    (2, 256, 256, 8, 2, 64, True, 128, "float32"),
+    (1, 256, 256, 2, 1, 64, False, None, "float32"),
+    (1, 256, 256, 4, 1, 64, True, None, "bfloat16"),
+    (1, 512, 512, 2, 2, 128, True, 256, "float32"),
+]
+# ragged lengths and Sq < Sk, which the Pallas kernel (whole tiles) does not take
+RAGGED_CASES = [
+    (2, 77, 77, 4, 2, 32, True, None, "float32"),
+    (1, 200, 200, 4, 1, 64, True, 64, "float32"),
+    (1, 50, 130, 4, 2, 64, True, None, "float32"),
+    (2, 33, 100, 2, 2, 32, False, 40, "float32"),
+    (1, 200, 200, 4, 2, 64, True, None, "bfloat16"),
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_kernels.py holds the TPU kernel
+
+
+def _qkv(case, seed):
+    b, sq, sk, h, kh, d, _, _, _ = case
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, sk, kh, d)).astype(np.float32),
+            rng.standard_normal((b, sk, kh, d)).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    """The same values as jax arrays and torch tensors of ``dtype`` (both
+    round f32 to bf16 to nearest even, so the bits agree)."""
+    jx = [jnp.asarray(a, dtype) for a in arrays]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    return jx, tx
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_plain_flash_matches_pallas_kernel_and_ref(case):
+    *_, causal, window, dtype = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(case, sum(case[:6])), dtype)
+    got = _np(flash_attention(tq, tk, tv, causal=causal, window=window))
+    pallas = _np(pallas_flash(jq, jk, jv, causal=causal, window=window, interpret=True))
+    want = _np(jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window))
+    np.testing.assert_allclose(got, pallas, atol=TOL[dtype])
+    np.testing.assert_allclose(got, want, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_plain_flash_matches_ref_at_ragged_lengths(case):
+    *_, causal, window, dtype = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(case, 7), dtype)
+    got = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = _np(jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window))
+    np.testing.assert_allclose(_np(got), want, atol=TOL[dtype])
+
+
+def test_cpu_flash_launches_nothing_and_checks_inputs():
+    before = launch_counts()
+    q = torch.zeros(1, 8, 4, 32)
+    kv = torch.zeros(1, 8, 2, 32)
+    flash_attention(q, kv, kv)
+    assert launch_counts() == before
+    with pytest.raises(ValueError, match="do not split"):
+        flash_attention(torch.zeros(1, 8, 3, 32), kv, kv)
+    with pytest.raises(ValueError, match="Sq 9 > Sk 8"):
+        flash_attention(torch.zeros(1, 9, 4, 32), kv, kv)
+    with pytest.raises(TypeError, match="share one of"):
+        flash_attention(q.double(), kv, kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, kv.transpose(1, 2).contiguous().transpose(1, 2), kv)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, kv, kv, window=0)
+
+
+def test_ops_match_the_reference_ops():
+    """The four ops under the reference's names give the reference ops'
+    results (the reference runs its plain versions on the CPU)."""
+    rng = np.random.default_rng(11)
+    case = (1, 64, 64, 4, 2, 32, True, None, "float32")
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(case, 2), "float32")
+    np.testing.assert_allclose(ops.attention_op(tq, tk, tv, window=16).numpy(),
+                               np.asarray(jops.attention_op(jq, jk, jv, window=16)), atol=2e-5)
+    f = np.abs(rng.standard_normal((9, 24))).astype(np.float32)
+    w = (rng.standard_normal((24, 8)) / 5).astype(np.float32)
+    b = (0.1 * rng.standard_normal(8)).astype(np.float32)
+    q, s = ops.compress_op(*(torch.from_numpy(a) for a in (f, w, b)))
+    jq8, js = jops.compress_op(*(jnp.asarray(a) for a in (f, w, b)))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq8))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=2e-6)
+    np.testing.assert_array_equal(ops.decompress_op(q, s).numpy(),
+                                  np.asarray(jops.decompress_op(jnp.asarray(q.numpy()),
+                                                                jnp.asarray(s.numpy()))))
+    r, k, v = (rng.standard_normal((1, 12, 2, 16)).astype(np.float32) for _ in range(3))
+    dec = np.exp(-np.exp(rng.standard_normal((1, 12, 2, 16)) - 1)).astype(np.float32)
+    u = (0.3 * rng.standard_normal((2, 16))).astype(np.float32)
+    out, state = ops.wkv_op(*(torch.from_numpy(a) for a in (r, k, v, dec, u)))
+    jout, jstate = jops.wkv_op(*(jnp.asarray(a) for a in (r, k, v, dec, u)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-5)
+    np.testing.assert_allclose(state.numpy(), np.asarray(jstate), atol=1e-5)
+
+
+# ----------------------------------------------------------------- layers ----
+def test_rmsnorm_and_rope_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 9, 4, 32)).astype(np.float32)
+    w = rng.standard_normal(32).astype(np.float32)
+    np.testing.assert_allclose(TL.rmsnorm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+                               np.asarray(JL.rmsnorm(jnp.asarray(x), jnp.asarray(w))),
+                               rtol=1e-5, atol=1e-6)
+    pos = np.arange(9) + 1000
+    tc, ts = TL.rope_tables(torch.from_numpy(pos), 32, 500000.0)
+    jc, js = JL.rope_tables(jnp.asarray(pos), 32, 500000.0)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-5)
+    got = TL.apply_rope(torch.from_numpy(x), tc, ts).numpy()
+    want = np.asarray(JL.apply_rope(jnp.asarray(x), jc, js))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_array_equal(TL.repeat_kv(torch.from_numpy(x), 3).numpy(),
+                                  np.asarray(JL.repeat_kv(jnp.asarray(x), 3)))
+
+
+# S = 16 takes the reference's plain branch, S = 640 (Sq*Sk > 512**2) its chunked one
+@pytest.mark.parametrize("s,window", [(16, None), (16, 5), (640, None), (640, 200)])
+def test_attention_matches_both_reference_branches(s, window):
+    case = (1, s, s, 4, 2, 16, True, window, "float32")
+    q, k, v = _qkv(case, s)
+    got = TL.attention(*(torch.from_numpy(a) for a in (q, k, v)), window=window).numpy()
+    want = np.asarray(JL.attention(*(jnp.asarray(a) for a in (q, k, v)), window=window))
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_decode_attention_matches_reference_on_a_ring_buffer(window):
+    rng = np.random.default_rng(3)
+    b, sc, h, kh, d = 2, 10, 4, 2, 16
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    kc = rng.standard_normal((b, sc, kh, d)).astype(np.float32)
+    vc = rng.standard_normal((b, sc, kh, d)).astype(np.float32)
+    # a ring buffer part-way round, with empty slots (-1) in the second row
+    kv_pos = np.array([[10, 11, 12, 3, 4, 5, 6, 7, 8, 9],
+                       [0, 1, 2, 3, 4, 5, 6, -1, -1, -1]], np.int32)
+    q_pos = np.array([12, 6], np.int32)
+    got = TL.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc, kv_pos, q_pos)),
+                              window=window).numpy()
+    want = np.asarray(JL.decode_attention(*(jnp.asarray(a) for a in (q, kc, vc, kv_pos, q_pos)),
+                                          window=window))
+    np.testing.assert_allclose(got, want, atol=2e-6)

@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA kernels and the split runtime against the
-port's own CPU path.  Every test here needs an NVIDIA card and skips
+"""The port on the card: the CUDA kernels, the split runtime and the zoo's
+serving path against the port's own CPU path.  Every test here needs an NVIDIA card and skips
 without one; on a machine with a card and no JAX, run
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
 """
@@ -13,8 +13,14 @@ from repro_torch.core import bottleneck as B  # noqa: E402
 from repro_torch.kernels import launch_counts, ref, reset_launches  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.models.vgg import vgg_cifar  # noqa: E402
 from repro_torch.runtime.engine import SplitRuntime, run_clients  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.common import reduced  # noqa: E402
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +100,71 @@ def test_split_runtime_on_the_card_matches_the_cpu_path(cuda):
     res, server = run_clients(model, params, 9, [x[:2], x[2:]], ae=ae[9], n_slots=2,
                               device=cuda)
     assert sorted(res) == [0, 1] and server.n_batches == 1
+
+
+# b, sq, sk, h, kh, d, causal, window: ragged lengths, Sq < Sk, GQA, windows;
+# the kernel takes the dense configurations' head dim, 128
+FLASH_SHAPES = [(2, 77, 77, 4, 2, 128, True, None), (1, 200, 200, 8, 2, 128, True, 64),
+                (1, 50, 130, 4, 4, 128, True, None), (2, 33, 100, 2, 1, 128, False, 40),
+                (1, 1, 1, 4, 2, 128, True, None)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_plain(cuda, shape, dtype):
+    b, sq, sk, h, kh, d, causal, window = shape
+    g = torch.Generator().manual_seed(sq * sk + d)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, sq, h, d), generator=g).to(cuda, dt)
+    k, v = (torch.randn((b, sk, kh, d), generator=g).to(cuda, dt) for _ in range(2))
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    # as tests/test_kernels.py holds the TPU kernel to its ref
+    assert float((got.float() - want.float()).abs().max()) <= (2e-5 if dtype == "float32"
+                                                               else 2e-2)
+
+
+# b, s, h, d: one step, ragged S; the kernel takes rwkv6-1.6b's head dim, 64
+@pytest.mark.parametrize("shape", [(2, 1, 3, 64), (1, 37, 2, 64), (2, 300, 4, 64), (1, 5, 2, 64)])
+def test_rwkv6_scan_matches_plain(cuda, shape):
+    b, s, h, d = shape
+    g = torch.Generator().manual_seed(s + d)
+    r, k, v = (0.5 * torch.randn((b, s, h, d), generator=g) for _ in range(3))
+    w = torch.sigmoid(torch.randn((b, s, h, d), generator=g))
+    u = 0.3 * torch.randn((h, d), generator=g)
+    st = 0.2 * torch.randn((b, h, d, d), generator=g)
+    args = [a.to(cuda) for a in (r, k, v, w, u, st)]
+    want_out, want_st = ref.rwkv6_scan_ref(*args)
+    out, final = rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert float((out - want_out).abs().max()) <= 1e-4 * float(want_out.abs().max())
+    assert float((final - want_st).abs().max()) <= 1e-4 * float(want_st.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b"])
+def test_zoo_serving_on_the_card_matches_the_cpu_path(cuda, arch):
+    import dataclasses
+    # the head dims the kernels take: 128 (dense), 64 (rwkv)
+    cfg = dataclasses.replace(reduced(get_config(arch), head_dim=128, rwkv_head_dim=64),
+                              dtype="float32")
+    params_cpu = T.init_params(0, cfg, device="cpu")
+    params = _to(params_cpu, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (5, 70, 9)]
+    reset_launches()
+    got = ServingEngine(cfg, params, cache_slots=80, device=cuda).run(
+        [Request(i, p, max_new=4) for i, p in enumerate(prompts)])
+    counts = launch_counts()
+    kernel = "flash_attention" if arch.startswith("llama") else "rwkv6_scan"
+    assert sum(counts[kernel].values()) > 0
+    want = ServingEngine(cfg, params_cpu, cache_slots=80, device="cpu").run(
+        [Request(i, p, max_new=4) for i, p in enumerate(prompts)])
+    assert [r.out for r in got] == [r.out for r in want]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
