@@ -6,7 +6,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments,
 no install: it puts ``src/`` on the path itself).  Phases:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. (Z1) build the four CUDA kernels from ``src/repro_torch/csrc``, one nvcc
+2. (Z1) build the five CUDA kernels from ``src/repro_torch/csrc``, one nvcc
    each, all at once;
 3. hold each bottleneck kernel, and each branch of it, against its plain
    PyTorch version on the card at the main path's shapes (full-width VGG16,
@@ -33,11 +33,19 @@ no install: it puts ``src/`` on the path itself).  Phases:
    served runs again in f32, held to the f32 bar;
 10. (Z6) for each model, a full-width depth-2 f32 copy through the kernels
     on the card against the plain versions on the CPU, same weights;
-11. print the kernels' launch counts with their errors, times and bounds as
+11. (Z7) hold ``mamba_scan`` against its plain version at the jamba-v0.1-52b
+    prefill (zero state), a ragged S from a given state and a decode step;
+12. (Z8) serve jamba-v0.1-52b with its dense FFN (``moe=None``; the MoE
+    layers wait for ROADMAP A13b) at full width and full depth in bf16
+    through ``ServingEngine``, Z4's prompts, 16 new tokens each, each step's
+    logits held against one full forward under Z4's rule; (Z9) the same in
+    f32; (Z10) Z6's check for a one-period (8-layer) f32 copy of it;
+13. print the kernels' launch counts with their errors, times and bounds as
     one JSON line, then ``{"ok": true, "device": ...}``.
 
-Each path (phases 4-5, Z4, Z5, Z6) runs with the launch counts set to 0
-just before it and read just after.  Any failed check raises, so the
+Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10) runs with the launch counts set
+to 0 just before it and read just after; a served run's prefill and decode
+are counted apart as well.  Any failed check raises, so the
 script exits non-zero and prints no result.  It exits non-zero as well
 where CUDA is not available.
 """
@@ -57,13 +65,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SERVED, get_config  # noqa: E402
 from repro_torch.core import bottleneck as B  # noqa: E402
 from repro_torch.core.bottleneck import latent_channels  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ref, reset_launches  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels import bottleneck_decompress as decomp  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as RS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layered import transformer_as_layered  # noqa: E402
@@ -86,13 +95,16 @@ NEW_TOKENS = 16
 LLAMA_CUT_ROWS = len(LLAMA_PROMPTS) * max(LLAMA_PROMPTS)   # the (B*S, 3072) residual at the cut
 EXTRA_SHAPES = [("n1", 1, 512, 256), ("ragged_rows", 4237, 96, 48),
                 ("ragged_cols", 777, 300, 100), ("llama_cut14", LLAMA_CUT_ROWS, 3072, 1536)]
-# flash_attention at the llama3.2-3b prefill (B 4, S 2000, H 24, K 8, D 128)
-# and around it: (label, B, Sq, Sk, H, K, D, causal, window, dtype)
+# flash_attention at the llama3.2-3b prefill (B 4, S 2000, H 24, K 8, D 128),
+# at the jamba-v0.1-52b prefill (H 32, K 8: a GQA group of 4, not 3) and
+# around them: (label, B, Sq, Sk, H, K, D, causal, window, dtype)
 # Each mask also in f32, where the bar (1e-5) is far below what a key off by
 # one at the window's or the alignment's edge would move.
 FLASH_SHAPES = [
     ("llama_prefill", 4, 2000, 2000, 24, 8, 128, True, None, torch.bfloat16),
     ("llama_f32", 4, 1000, 1000, 24, 8, 128, True, None, torch.float32),
+    ("jamba_prefill", 4, 2000, 2000, 32, 8, 128, True, None, torch.bfloat16),
+    ("jamba_prefill_f32", 4, 2000, 2000, 32, 8, 128, True, None, torch.float32),
     ("window512", 4, 2000, 2000, 24, 8, 128, True, 512, torch.bfloat16),
     ("window512_f32", 4, 2000, 2000, 24, 8, 128, True, 512, torch.float32),
     ("noncausal", 4, 1000, 1000, 24, 8, 128, False, None, torch.bfloat16),
@@ -106,6 +118,16 @@ FLASH_SHAPES = [
 # (label, B, S, H, D, nonzero initial state)
 RWKV_SHAPES = [("rwkv_prefill", 4, 1000, 32, 64, False), ("rwkv_decode", 4, 1, 32, 64, True),
                ("ragged333", 4, 333, 32, 64, True)]
+# mamba_scan at the jamba-v0.1-52b prefill and decode (d_inner 8192, d_state
+# 16): (label, B, S, di, ds, nonzero initial state)
+MAMBA_SHAPES = [("jamba_prefill", 4, 2000, 8192, 16, False), ("ragged333", 4, 333, 8192, 16, True),
+                ("jamba_decode", 4, 1, 8192, 16, True)]
+# its bar, relative to max |plain| of y and of the final state: f32 in
+# another order (fused multiply-adds, the kernel's own sum over d_state)
+MAMBA_RTOL = 1e-5
+# jamba-v0.1-52b as served (configs.SERVED: every FFN the dense SwiGLU, its
+# MoE layers wait for ROADMAP A13b); Z4's prompts
+JAMBA = "jamba-v0.1-52b"
 SERVED_CUTS = (16, 23, 33)
 HEADLINE = "pool23"           # the shape whose numbers head each kernel's entry
 # Logits of the ae8 chain against the same chain through the plain versions,
@@ -433,6 +455,41 @@ def check_rwkv(label, b, s, h, d, nonzero, gen) -> dict:
     return e
 
 
+def check_mamba(label, b, s, di, ds, nonzero, gen) -> dict:
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = 0.1 * F.softplus(randn(b, s, di))
+    bm, cm = (0.5 * randn(b, s, ds) for _ in range(2))
+    x = randn(b, s, di)
+    a = -torch.exp(0.3 * randn(di, ds))
+    st = 0.3 * randn(b, di, ds) if nonzero else torch.zeros((b, di, ds), device="cuda")
+    want_y, want_st = ref.mamba_scan_ref(dt, bm, cm, x, a, st)
+    y, final = MS.mamba_scan(dt, bm, cm, x, a, st)
+    torch.cuda.synchronize()
+    err_y = float((y - want_y).abs().max())
+    err_st = float((final - want_st).abs().max())
+    top_y, top_st = float(want_y.abs().max()), float(want_st.abs().max())
+    if (not (torch.isfinite(y).all() and torch.isfinite(final).all())
+            or err_y > MAMBA_RTOL * top_y or err_st > MAMBA_RTOL * top_st):
+        raise AssertionError(f"mamba_scan at {label}: y err {err_y} of {top_y}, "
+                             f"state err {err_st} of {top_st} (bar {MAMBA_RTOL})")
+    run = lambda: MS.mamba_scan(dt, bm, cm, x, a, st)  # noqa: E731
+    e = {"shape": label, "B": b, "S": s, "di": di, "ds": ds, "initial_state": nonzero,
+         "max_abs_err": max(err_y, err_st), "y_rel_err": err_y / top_y,
+         "state_rel_err": err_st / top_st,
+         "ms": device_ms(run), "call_ms": call_ms(run),
+         "plain_ms": device_ms(lambda: ref.mamba_scan_ref(dt, bm, cm, x, a, st),
+                               reps=1, replays=2),
+         "library_ms": None}
+    e["ms_per_step"] = e["ms"] / s
+    # dt, x read and y written; B, C, A and both states; 7 operations a
+    # state entry and step (dt*A, its exp, two products, two sums, h*C)
+    e["bound_ms"], e["bound_by"] = bound_ms(4 * (3 * b * s * di + 2 * b * s * ds + di * ds
+                                                 + 2 * b * di * ds),
+                                            7 * b * s * di * ds + b * s * di)
+    return e
+
+
 def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
@@ -487,20 +544,50 @@ def device_breakdown(fn, top=6) -> dict:
             "top": [{"kernel": k[:80], "ms": us / 1e3, "share": us / total} for k, us in rows]}
 
 
-def serve_zoo(arch, prompt_lens, kernel, want, dtype="bfloat16") -> dict:
-    """Z4 / Z5: full-width, full-depth serving of ``arch`` through
-    ``ServingEngine``; ``kernel`` must launch ``want`` times in the run.
+def served_cfg(arch, **changes):
+    """The configuration the port serves under ``arch``."""
+    return dataclasses.replace(get_config(arch), **SERVED.get(arch, {}), **changes)
+
+
+def per_token_launches(cfg) -> tuple:
+    """Kernel launches ``{kernel: n}`` of one prefill and of one decode step
+    of ``cfg``: ``flash_attention`` once an attention layer in the prefill
+    (decode attention is plain ops), each scan once a layer of its mixer in
+    the prefill and in every decode step."""
+    descs, n_groups = T.block_structure(cfg)
+    attn = n_groups * sum(d.mixer == "attn" for d in descs)
+    rwkv = n_groups * sum(d.mixer == "rwkv" for d in descs)
+    mamba = n_groups * sum(d.mixer == "mamba" for d in descs)
+    return ({"flash_attention": attn, "rwkv6_scan": rwkv, "mamba_scan": mamba},
+            {"flash_attention": 0, "rwkv6_scan": rwkv, "mamba_scan": mamba})
+
+
+def check_launches(what, counts, want) -> None:
+    """Every kernel launched exactly as ``want`` says (0 where it is silent)."""
+    got = {k: sum(c.values()) for k, c in counts.items()}
+    if any(n != want.get(k, 0) for k, n in got.items()):
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
+    """Z4 / Z5 / Z8 / Z9: full-width, full-depth serving of ``arch`` through
+    ``ServingEngine``; every kernel launches as ``per_token_launches`` says,
+    in the served run and in a prefill and the decode steps counted apart.
     The served tokens are then fed through prefill + serve_step again, and
     the logits of each step held against one full forward over prompt +
     served tokens (see ``ZOO_RTOL``)."""
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    cfg = served_cfg(arch, dtype=dtype)
+    per_prefill, per_step = per_token_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_params(0, cfg, device="cuda")
     torch.cuda.synchronize()
     out = {"arch": arch, "dtype": dtype, "init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "param_gb": sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9,
-           "prompt_lens": list(prompt_lens), "new_tokens": NEW_TOKENS}
+           "prompt_lens": list(prompt_lens), "new_tokens": NEW_TOKENS,
+           "n_layers": cfg.n_layers, "moe": cfg.moe}
+    torch.cuda.reset_peak_memory_stats()      # peak_gb: serving, the weights included
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
     slots = max(prompt_lens) + NEW_TOKENS
@@ -514,8 +601,8 @@ def serve_zoo(arch, prompt_lens, kernel, want, dtype="bfloat16") -> dict:
     out["run_ms"] = 1e3 * (time.perf_counter() - t0)
     counts = launch_counts()
     out["launches"] = counts
-    if sum(counts[kernel].values()) != want:
-        raise AssertionError(f"{arch}: {kernel} launched {counts[kernel]}, want {want}")
+    check_launches(f"{arch} {dtype} served", counts,
+                   {k: n + NEW_TOKENS * per_step[k] for k, n in per_prefill.items()})
     for r in reqs:
         if len(r.out) != NEW_TOKENS or not all(0 <= t < cfg.vocab for t in r.out):
             raise AssertionError(f"{arch}: request {r.rid} got {r.out}")
@@ -526,18 +613,25 @@ def serve_zoo(arch, prompt_lens, kernel, want, dtype="bfloat16") -> dict:
     # tokens; each step's logits are kept
     toks = torch.from_numpy(padded(prompts)).cuda()
     with torch.inference_mode():
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache, pos = T.prefill(params, cfg, {"tokens": toks}, slots)
         torch.cuda.synchronize()
         out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["prefill_launches"] = launch_counts()
+        check_launches(f"{arch} {dtype} prefill", out["prefill_launches"], per_prefill)
         steps = [logits.float()]
+        reset_launches()
         t0 = time.perf_counter()
         for step in range(NEW_TOKENS):
             logits, cache = T.serve_step(params, cfg, cache, served[:, step:step + 1], pos + step)
             steps.append(logits.float())
         torch.cuda.synchronize()
         out["decode_ms_per_token"] = 1e3 * (time.perf_counter() - t0) / NEW_TOKENS
+        out["decode_launches"] = launch_counts()
+        check_launches(f"{arch} {dtype} decode", out["decode_launches"],
+                       {k: NEW_TOKENS * n for k, n in per_step.items()})
         del cache
         steps = torch.stack(steps[:NEW_TOKENS], 1)            # (B, NEW_TOKENS, V)
         if not torch.equal(steps.argmax(-1).int(), served):
@@ -632,10 +726,12 @@ def split_lens(cfg, params, toks) -> dict:
             "encode_wire_ms": encode_ms, "decode_wire_ms": decode_ms}
 
 
-def e2e_check(arch, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> dict:
-    """Z6: a full-width depth-2 f32 copy of ``arch`` through the kernels on
-    the card and through the plain versions on the CPU, same weights."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+def e2e_check(arch, n_layers=2, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> dict:
+    """Z6 / Z10: a full-width f32 copy of ``arch`` cut to ``n_layers``
+    through the kernels on the card and through the plain versions on the
+    CPU, same weights."""
+    cfg = served_cfg(arch, n_layers=n_layers, dtype="float32")
+    per_prefill, per_step = per_token_launches(cfg)
     params_cpu = T.init_params(0, cfg, device="cpu")
     params_gpu = tree_to(params_cpu, "cuda")
     rng = np.random.default_rng(2)
@@ -657,10 +753,9 @@ def e2e_check(arch, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> dict:
     got = greedy_run(params_gpu, "cuda")
     torch.cuda.synchronize()
     counts = launch_counts()
+    check_launches(f"Z6 {arch}", counts,
+                   {k: n + n_new * per_step[k] for k, n in per_prefill.items()})
     want = greedy_run(params_cpu, "cpu")
-    kernel = "flash_attention" if cfg.family == "dense" else "rwkv6_scan"
-    if sum(counts[kernel].values()) == 0:
-        raise AssertionError(f"Z6 {arch}: {kernel} was not launched")
     top = float(want[:, 0].abs().max())
     prefill_err = float((got[:, 0] - want[:, 0]).abs().max()) / top
     if prefill_err > rtol:
@@ -683,7 +778,8 @@ def e2e_check(arch, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> dict:
         raise AssertionError(f"Z6 {arch}: decode logits off by {step_err} of max (bar {rtol})")
     del params_gpu
     torch.cuda.empty_cache()
-    return {"arch": arch, "n_layers": 2, "dtype": "float32", "prompt_lens": list(prompt_lens),
+    return {"arch": arch, "n_layers": n_layers, "dtype": "float32",
+            "prompt_lens": list(prompt_lens),
             "new_tokens": n_new, "prefill_rel_err": prefill_err, "step_rel_err": step_err,
             "tokens_compared": compared, "diverged_at_near_ties": diverged, "launches": counts}
 
@@ -749,33 +845,44 @@ def main() -> int:
     for label, *shape in RWKV_SHAPES:
         rwkv_rows.append(check_rwkv(label, *shape, gen))
         print("rwkv6_scan", json.dumps(rwkv_rows[-1]), flush=True)
+    # Z7
+    mamba_rows = []
+    for label, *shape in MAMBA_SHAPES:
+        mamba_rows.append(check_mamba(label, *shape, gen))
+        print("mamba_scan", json.dumps(mamba_rows[-1]), flush=True)
+        torch.cuda.empty_cache()
 
-    # Z4, Z5: full-width serving, counted; Z6: kernels against the plain path
-    # flash_attention once a layer in the prefill (decode attention is plain);
-    # rwkv6_scan once a layer in the prefill and in every decode step
-    llama = serve_zoo("llama3.2-3b", LLAMA_PROMPTS, "flash_attention",
-                      get_config("llama3.2-3b").n_layers)
+    # Z4, Z5, Z8: full-width, full-depth serving, counted; then each served
+    # run again in f32 (Z9 for jamba), held to the f32 bar; Z6, Z10: kernels
+    # against the plain path
+    llama = serve_zoo("llama3.2-3b", LLAMA_PROMPTS)
     print("served llama3.2-3b", json.dumps(llama), flush=True)
-    rwkv = serve_zoo("rwkv6-1.6b", RWKV_PROMPTS, "rwkv6_scan",
-                     get_config("rwkv6-1.6b").n_layers * (1 + NEW_TOKENS))
+    rwkv = serve_zoo("rwkv6-1.6b", RWKV_PROMPTS)
     print("served rwkv6-1.6b", json.dumps(rwkv), flush=True)
-    # the same two served runs in f32, held to the f32 bar
-    for arch, prompts, kernel, want in (
-            ("llama3.2-3b", LLAMA_PROMPTS, "flash_attention", get_config("llama3.2-3b").n_layers),
-            ("rwkv6-1.6b", RWKV_PROMPTS, "rwkv6_scan",
-             get_config("rwkv6-1.6b").n_layers * (1 + NEW_TOKENS))):
-        print(f"served {arch} float32",
-              json.dumps(serve_zoo(arch, prompts, kernel, want, dtype="float32")), flush=True)
+    jamba = serve_zoo(JAMBA, LLAMA_PROMPTS)
+    print(f"served {JAMBA}", json.dumps(jamba), flush=True)
+    f32 = {}
+    for arch, prompts in (("llama3.2-3b", LLAMA_PROMPTS), ("rwkv6-1.6b", RWKV_PROMPTS),
+                          (JAMBA, LLAMA_PROMPTS)):
+        f32[arch] = serve_zoo(arch, prompts, dtype="float32")
+        print(f"served {arch} float32", json.dumps(f32[arch]), flush=True)
     e2e = [e2e_check(arch) for arch in ("llama3.2-3b", "rwkv6-1.6b")]
+    # jamba cut to one period: 1 attention and 7 Mamba layers
+    e2e.append(e2e_check(JAMBA, n_layers=len(T.block_structure(served_cfg(JAMBA))[0])))
     print("end to end", json.dumps(e2e), flush=True)
 
     # the kernels line: launches from each kernel's main path
     paths = {"bottleneck_compress": ("vgg16 phases 4-5", vgg_counts),
              "bottleneck_decompress": ("vgg16 phases 4-5", vgg_counts),
              "flash_attention": ("Z4 llama3.2-3b ServingEngine.run", llama["launches"]),
-             "rwkv6_scan": ("Z5 rwkv6-1.6b ServingEngine.run", rwkv["launches"])}
-    also = {"Z4 split": llama["split"]["launches"], "Z6 llama3.2-3b": e2e[0]["launches"],
-            "Z6 rwkv6-1.6b": e2e[1]["launches"]}
+             "rwkv6_scan": ("Z5 rwkv6-1.6b ServingEngine.run", rwkv["launches"]),
+             "mamba_scan": (f"Z8 {JAMBA} ServingEngine.run", jamba["launches"])}
+    also = {"Z4 split": llama["split"]["launches"],
+            f"Z8 {JAMBA}": jamba["launches"],
+            f"Z8 {JAMBA} prefill": jamba["prefill_launches"],
+            f"Z8 {JAMBA} decode": jamba["decode_launches"],
+            **{f"{arch} float32": f32[arch]["launches"] for arch in f32},
+            **{f"Z6 {e['arch']} depth {e['n_layers']}": e["launches"] for e in e2e}}
 
     def entry(name, rows, replaces, headline):
         head = next(e for e in rows if e["shape"] == headline)
@@ -798,6 +905,7 @@ def main() -> int:
         entry("flash_attention", flash_rows, "src/repro/kernels/flash_attention.py:86",
               "llama_prefill"),
         entry("rwkv6_scan", rwkv_rows, "src/repro/kernels/rwkv6_scan.py:56", "rwkv_prefill"),
+        entry("mamba_scan", mamba_rows, "src/repro/kernels/mamba_scan.py:55", "jamba_prefill"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
 """Config registry (twin of ``repro/configs/__init__.py``):
 ``get_config("<arch-id>")`` knows the same ten names.
 
-The port serves the ``dense`` and ``ssm`` families; a name of another
-family (MoE, hybrid, encoder-decoder, VLM) raises ``NotImplementedError``
-until its modules are ported (ROADMAP A13).
+The port serves the ``dense``, ``ssm`` and ``hybrid`` families.  A name of
+another family raises ``NotImplementedError`` until its modules are ported:
+MoE in ROADMAP A13b, encoder-decoder and VLM in A17.  jamba-v0.1-52b's
+config carries its MoE; building it raises at the first MoE layer (A13b),
+and the port serves it with the changes in ``SERVED``
+(``dataclasses.replace(cfg, moe=None)``, every FFN the dense SwiGLU).
 """
 from __future__ import annotations
 
@@ -26,16 +29,21 @@ UNPORTED = {
     "internvl2-76b": "vlm",
     "deepseek-moe-16b": "moe",
     "whisper-tiny": "encdec",
-    "jamba-v0.1-52b": "hybrid",
     "qwen3-moe-235b-a22b": "moe",
 }
+# the ROADMAP item that ports each family
+ROADMAP_ITEM = {"moe": "A13b", "encdec": "A17", "vlm": "A17"}
+# what the port changes in a config to serve it: jamba's MoE layers wait for
+# ROADMAP A13b, so every FFN is the dense SwiGLU
+SERVED = {"jamba-v0.1-52b": {"moe": None}}
 
 
 def get_config(name: str):
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     if name in UNPORTED:
-        raise NotImplementedError(f"{name} is of the {UNPORTED[name]} family, which the "
-                                  "port does not serve yet (ROADMAP A13)")
+        family = UNPORTED[name]
+        raise NotImplementedError(f"{name} is of the {family} family, which the port does "
+                                  f"not serve yet (ROADMAP {ROADMAP_ITEM[family]})")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
     return mod.CONFIG

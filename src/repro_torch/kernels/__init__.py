@@ -1,12 +1,13 @@
 """The port's kernels: hand-written CUDA C++ for ``sm_90a`` with plain
 PyTorch versions beside them (``ref``)."""
 from repro_torch.kernels import (bottleneck_compress, bottleneck_decompress, flash_attention,
-                                 rwkv6_scan)
+                                 mamba_scan, rwkv6_scan)
 
 _COUNTERS = {"bottleneck_compress": bottleneck_compress.launches,
              "bottleneck_decompress": bottleneck_decompress.launches,
              "flash_attention": flash_attention.launches,
-             "rwkv6_scan": rwkv6_scan.launches}
+             "rwkv6_scan": rwkv6_scan.launches,
+             "mamba_scan": mamba_scan.launches}
 
 
 def launch_counts() -> dict:

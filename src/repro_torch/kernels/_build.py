@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("bottleneck_compress", "bottleneck_decompress", "flash_attention", "rwkv6_scan")
+KERNELS = ("bottleneck_compress", "bottleneck_decompress", "flash_attention", "mamba_scan",
+           "rwkv6_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

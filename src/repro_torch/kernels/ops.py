@@ -13,6 +13,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.bottleneck_compress import bottleneck_compress
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
 
@@ -36,3 +37,12 @@ def wkv_op(r, k, v, w, u, state=None):
         b, _, h, d = r.shape
         state = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
     return rwkv6_scan(r, k, v, w, u, state)
+
+
+def mamba_scan_op(dt, b, c, x, a, state=None):
+    """The selective scan from ``state`` (zeros when None, as the
+    reference's op starts).  Returns (y, final state)."""
+    if state is None:
+        bsz, _, di = dt.shape
+        state = torch.zeros((bsz, di, b.shape[-1]), dtype=torch.float32, device=dt.device)
+    return mamba_scan(dt, b, c, x, a, state)

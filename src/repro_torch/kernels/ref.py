@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (twin of
 ``repro/kernels/ref.py``: the bottleneck oracles at ``:33-59``,
-``flash_attention_ref`` at ``:11`` and ``rwkv6_scan_ref`` at ``:62``).
+``flash_attention_ref`` at ``:11``, ``rwkv6_scan_ref`` at ``:62`` and
+``mamba_scan_ref`` at ``:79``).
 
 The kernel wrappers use them for tensors on the CPU, the tests hold them
 against the JAX package's Pallas kernels, and ``chip_smoke.py`` holds the
@@ -56,6 +57,25 @@ def rwkv6_scan_ref(r, k, v, w, u, state):
         outs.append(torch.einsum("bhk,bhkv->bhv", rt, s + u[..., None] * kv))
         s = wt[..., None] * s + kv
     return torch.stack(outs, dim=1), s
+
+
+def mamba_scan_ref(dt, b, c, x, a, state):
+    """Sequential Mamba selective scan, a Python loop over time.
+
+    dt, x: (B, S, di) f32; b, c: (B, S, ds) f32; a: (di, ds) f32 (negative);
+    state: (B, di, ds) f32.
+    h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) b_t;  y_t = h_t . c_t.
+    Unlike the reference's oracle, which starts from zero and returns y
+    alone, it starts from ``state`` and returns (y (B, S, di), final state).
+    """
+    h = state
+    ys = []
+    for t in range(dt.shape[1]):
+        dt_t, b_t, c_t, x_t = dt[:, t], b[:, t], c[:, t], x[:, t]
+        da = torch.exp(dt_t[..., None] * a)                   # (B, di, ds)
+        h = da * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, c_t))
+    return torch.stack(ys, dim=1), h
 
 
 def bottleneck_compress_ref(f, w, b, *, scale: float = 127.0):

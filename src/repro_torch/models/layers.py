@@ -6,7 +6,7 @@ weights are (in, out), q/k/v are (B, S, H, D).  Self-attention over a
 sequence goes through ``ops.attention_op``, the ``flash_attention`` kernel
 on the card; one-token decode attention stays plain PyTorch, as the
 reference computes it outside any Pallas kernel.  ``layernorm`` and
-``gelu_mlp`` (encoder-decoder) wait for ROADMAP A13.
+``gelu_mlp`` (encoder-decoder) wait for ROADMAP A17.
 """
 from __future__ import annotations
 
@@ -119,7 +119,7 @@ def init_dense(gen, fan_in: int, fan_out: int, dtype, device) -> torch.Tensor:
 
 
 def init_attn(gen, cfg, device) -> dict:
-    """GQA attention params (cross-attention waits for ROADMAP A13)."""
+    """GQA attention params (cross-attention waits for ROADMAP A17)."""
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.tdtype
     p = {

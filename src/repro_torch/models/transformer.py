@@ -1,5 +1,5 @@
-"""The zoo's model definition for the ``dense`` and ``ssm`` families (twin
-of ``repro/models/transformer.py``).
+"""The zoo's model definition for the ``dense``, ``ssm`` and ``hybrid``
+families (twin of ``repro/models/transformer.py``).
 
 * ``forward(params, cfg, batch)``      — full-sequence (prefill)
 * ``serve_step(params, cfg, cache,…)`` — one-token decode against a cache
@@ -7,8 +7,9 @@ of ``repro/models/transformer.py``).
 Parameters keep the reference's group-stacked tree: every leaf under
 ``params["layers"]`` has a leading group axis.  Where the reference scans
 over groups with ``jax.lax.scan``, the port runs a Python loop over them.
-The MoE, Mamba, cross-attention, encoder and VLM branches raise
-``NotImplementedError`` until ROADMAP A13 ports them.
+The hybrid family runs with its dense FFN (jamba with ``moe=None``).  The
+MoE branches raise ``NotImplementedError`` until ROADMAP A13b ports them;
+the cross-attention, encoder and VLM branches until ROADMAP A17 does.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (apply_rope, attention, decode_attention, dense,
@@ -24,8 +26,8 @@ from repro_torch.models.layers import (apply_rope, attention, decode_attention, 
                                        rope_tables, swiglu)
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A13)")
+def _unported(what: str, item: str = "A17") -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +79,7 @@ def init_layer(gen, desc: LayerDesc, cfg: ModelConfig, device) -> dict:
     if desc.mixer == "attn":
         p["attn"] = init_attn(gen, cfg, device)
     elif desc.mixer == "mamba":
-        raise _unported("the Mamba mixer")
+        p["mamba"] = mamba_mod.init_mamba(gen, cfg, device)
     else:  # rwkv
         p["tm"] = rwkv_mod.init_time_mix(gen, cfg, device)
         p["cm"] = rwkv_mod.init_channel_mix(gen, cfg, device)
@@ -86,7 +88,7 @@ def init_layer(gen, desc: LayerDesc, cfg: ModelConfig, device) -> dict:
     if desc.ffn == "dense":
         p["ffn"] = init_swiglu(gen, d, cfg.d_ff, dt, device)
     elif desc.ffn == "moe":
-        raise _unported("the MoE FFN")
+        raise _unported("the MoE FFN", "A13b")
     return p
 
 
@@ -99,16 +101,18 @@ def _init_tree(gen, cfg: ModelConfig, device) -> dict:
     def one_group():
         return {f"l{j}": init_layer(gen, descs[j], cfg, device) for j in range(len(descs))}
 
-    def stack(*trees):
+    def stack(trees):
+        # each group's leaf is dropped once stacked, so the model is held
+        # once plus one stacked leaf, not twice
         if isinstance(trees[0], dict):
-            return {k: stack(*(t[k] for t in trees)) for k in trees[0]}
+            return {k: stack([t.pop(k) for t in trees]) for k in list(trees[0])}
         return torch.stack(trees)
 
     embed = torch.randn((cfg.vocab, d), generator=gen, dtype=torch.float32, device=device)
     params = {
         "embed": (embed * 0.02).to(dt),
         "final_norm": _norm_params(d, dt, device),
-        "layers": stack(*[one_group() for _ in range(n_groups)]),
+        "layers": stack([one_group() for _ in range(n_groups)]),
     }
     if not cfg.tie_embeddings:
         params["head"] = init_dense(gen, d, cfg.vocab, dt, device)
@@ -159,7 +163,9 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
         if collect_cache:
             cache["k"], cache["v"] = k, v
     elif desc.mixer == "mamba":
-        raise _unported("the Mamba mixer")
+        att, state = mamba_mod.mamba_seq(p["mamba"], h, cfg)
+        if collect_cache:
+            cache["conv"], cache["ssm"] = state
     else:  # rwkv: norm1 -> time-mix
         st = rwkv_mod.init_state(cfg, x.shape[0], x.dtype, x.device)
         att, tm_prev, wkv = rwkv_mod.time_mix(p["tm"], h, st["tm_prev"], st["wkv"], cfg)
@@ -172,7 +178,7 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
     if desc.ffn == "dense":
         f = swiglu(h, p["ffn"])
     elif desc.ffn == "moe":
-        raise _unported("the MoE FFN")
+        raise _unported("the MoE FFN", "A13b")
     else:  # rwkv channel mix
         f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, torch.zeros_like(h[:, 0]))
         if collect_cache:
@@ -247,7 +253,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
             c["v"] = zeros((n_groups, batch, sc, cfg.n_kv_heads, hd), dt)
             c["kv_pos"] = torch.full((n_groups, batch, sc), -1, dtype=torch.int32, device=dev)
         elif desc.mixer == "mamba":
-            raise _unported("the Mamba cache")
+            di, ds, dc = mamba_mod.d_inner(cfg), cfg.mamba_d_state, cfg.mamba_d_conv
+            c["conv"] = zeros((n_groups, batch, dc - 1, di), torch.float32)
+            c["ssm"] = zeros((n_groups, batch, di, ds), torch.float32)
         else:  # rwkv
             nh = cfg.d_model // cfg.rwkv_head_dim
             c["tm_prev"] = zeros((n_groups, batch, cfg.d_model), torch.float32)
@@ -289,7 +297,10 @@ def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
     if desc.mixer == "attn":
         att = _attn_decode(p["attn"], h, cfg, cache_l, pos, window)
     elif desc.mixer == "mamba":
-        raise _unported("the Mamba mixer")
+        att, (conv, ssm) = mamba_mod.mamba_step(
+            p["mamba"], h, (cache_l["conv"], cache_l["ssm"]), cfg)
+        cache_l["conv"].copy_(conv)
+        cache_l["ssm"].copy_(ssm)
     else:
         att, tm_prev, wkv = rwkv_mod.time_mix(
             p["tm"], h, cache_l["tm_prev"].to(h.dtype), cache_l["wkv"], cfg)
@@ -302,7 +313,7 @@ def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
     if desc.ffn == "dense":
         f = swiglu(h, p["ffn"])
     elif desc.ffn == "moe":
-        raise _unported("the MoE FFN")
+        raise _unported("the MoE FFN", "A13b")
     else:
         f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, cache_l["cm_prev"].to(h.dtype))
         cache_l["cm_prev"].copy_(cm_prev)
@@ -350,6 +361,9 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_seq_len: int):
             cj["k"][:, :, slots] = rj["k"][:, :, s_in - take:]
             cj["v"][:, :, slots] = rj["v"][:, :, s_in - take:]
             cj["kv_pos"][:, :, slots] = src_pos.to(torch.int32)
+        elif desc.mixer == "mamba":
+            cj["conv"].copy_(rj["conv"])
+            cj["ssm"].copy_(rj["ssm"])
         else:
             cj["tm_prev"].copy_(rj["tm_prev"])
             cj["cm_prev"].copy_(rj["cm_prev"])

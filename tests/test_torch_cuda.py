@@ -14,10 +14,11 @@ from repro_torch.kernels import launch_counts, ref, reset_launches  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.models.vgg import vgg_cifar  # noqa: E402
 from repro_torch.runtime.engine import SplitRuntime, run_clients  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SERVED, get_config  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import reduced  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -143,12 +144,34 @@ def test_rwkv6_scan_matches_plain(cuda, shape):
     assert float((final - want_st).abs().max()) <= 1e-4 * float(want_st.abs().max())
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b"])
+# b, s, di: one step, ragged S and di (not a whole block of channels); the
+# kernel takes jamba's d_state, 16
+@pytest.mark.parametrize("shape", [(2, 1, 256), (1, 37, 300), (2, 300, 512), (3, 70, 8192)])
+def test_mamba_scan_matches_plain(cuda, shape):
+    b, s, di = shape
+    g = torch.Generator().manual_seed(s + di)
+    dt = 0.1 * torch.nn.functional.softplus(torch.randn((b, s, di), generator=g))
+    bm, cm = (0.5 * torch.randn((b, s, 16), generator=g) for _ in range(2))
+    x = torch.randn((b, s, di), generator=g)
+    a = -torch.exp(0.3 * torch.randn((di, 16), generator=g))
+    st = 0.3 * torch.randn((b, di, 16), generator=g)
+    args = [t.to(cuda) for t in (dt, bm, cm, x, a, st)]
+    want_y, want_st = ref.mamba_scan_ref(*args)
+    reset_launches()
+    y, final = mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["mamba_scan"]["chain"] == 1
+    # as chip_smoke.py holds it: f32 in another summation order
+    assert float((y - want_y).abs().max()) <= 1e-5 * float(want_y.abs().max())
+    assert float((final - want_st).abs().max()) <= 1e-5 * float(want_st.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b", "jamba-v0.1-52b"])
 def test_zoo_serving_on_the_card_matches_the_cpu_path(cuda, arch):
     import dataclasses
     # the head dims the kernels take: 128 (dense), 64 (rwkv)
     cfg = dataclasses.replace(reduced(get_config(arch), head_dim=128, rwkv_head_dim=64),
-                              dtype="float32")
+                              dtype="float32", **SERVED.get(arch, {}))
     params_cpu = T.init_params(0, cfg, device="cpu")
     params = _to(params_cpu, cuda)
     rng = np.random.default_rng(0)
@@ -157,11 +180,35 @@ def test_zoo_serving_on_the_card_matches_the_cpu_path(cuda, arch):
     got = ServingEngine(cfg, params, cache_slots=80, device=cuda).run(
         [Request(i, p, max_new=4) for i, p in enumerate(prompts)])
     counts = launch_counts()
-    kernel = "flash_attention" if arch.startswith("llama") else "rwkv6_scan"
-    assert sum(counts[kernel].values()) > 0
+    kernels = {"llama3.2-3b": ["flash_attention"], "rwkv6-1.6b": ["rwkv6_scan"],
+               "jamba-v0.1-52b": ["flash_attention", "mamba_scan"]}[arch]
+    assert all(sum(counts[k].values()) > 0 for k in kernels)
     want = ServingEngine(cfg, params_cpu, cache_slots=80, device="cpu").run(
         [Request(i, p, max_new=4) for i, p in enumerate(prompts)])
     assert [r.out for r in got] == [r.out for r in want]
+
+
+def test_init_params_holds_the_model_once(cuda):
+    """Building the group-stacked tree on the card peaks near the model's own
+    size: each group's leaves are freed as they are stacked (it peaked at
+    twice the model before, 72 GB for jamba with moe=None in f32)."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-3b")), n_layers=16, dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = T.init_params(0, cfg, device=cuda)
+    peak = torch.cuda.max_memory_allocated() - base
+    size = sum(t.numel() * t.element_size() for t in _leaves(params))
+    assert peak < 1.5 * size, (peak, size)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _to(tree, dev):

@@ -1,6 +1,7 @@
-"""The port's transformer zoo (reduced llama3.2-3b and rwkv6-1.6b) on the
-CPU against the JAX package with the same weights: forward, prefill + decode,
-the layered view, the serving engine and the parameter crossing."""
+"""The port's transformer zoo (reduced llama3.2-3b, rwkv6-1.6b and
+jamba-v0.1-52b with its dense FFN) on the CPU against the JAX package with
+the same weights: forward, prefill + decode, the layered view, the serving
+engine and the parameter crossing."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -19,7 +20,7 @@ from repro.models.common import reduced as jreduced  # noqa: E402
 from repro.models.layered import transformer_as_layered as j_layered  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
-from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.configs import ARCHS, SERVED, get_config  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import reduced  # noqa: E402
 from repro_torch.models.layered import transformer_as_layered  # noqa: E402
@@ -28,12 +29,14 @@ from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHES = ["llama3.2-3b", "rwkv6-1.6b"]
+PAIR_ARCHES = ARCHES + ["jamba-v0.1-52b"]
 # f32 logits: the two frameworks sum in other orders (1e-3, as
 # tests/test_serving_consistency.py holds prefill + decode to forward)
 TOL = 1e-3
 
 
 def _pair(arch, dtype="float32", **overrides):
+    overrides = {**SERVED.get(arch, {}), **overrides}
     cfg = dataclasses.replace(reduced(get_config(arch)), dtype=dtype, **overrides)
     jcfg = dataclasses.replace(jreduced(jget_config(arch)), dtype=dtype, **overrides)
     jp = JT.init_params(jax.random.PRNGKey(1), jcfg)
@@ -41,7 +44,7 @@ def _pair(arch, dtype="float32", **overrides):
     return cfg, jcfg, tp, jp
 
 
-@pytest.fixture(scope="module", params=ARCHES)
+@pytest.fixture(scope="module", params=PAIR_ARCHES)
 def pair(request):
     return _pair(request.param)
 
@@ -182,12 +185,13 @@ def test_bf16_leaves_cross_bit_for_bit_and_mismatched_trees_raise():
 def test_config_registry_knows_the_ten_names():
     from repro.configs import ARCHS as JARCHS
     assert ARCHS == JARCHS
+    items = {"moe": "A13b", "encdec": "A17", "vlm": "A17"}
     for name in ARCHS:
         jcfg = jget_config(name)
-        if jcfg.family in ("dense", "ssm"):
+        if jcfg.family in ("dense", "ssm", "hybrid"):
             assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jcfg)
         else:
-            with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            with pytest.raises(NotImplementedError, match=f"ROADMAP {items[jcfg.family]}"):
                 get_config(name)
     with pytest.raises(KeyError):
         get_config("gpt-5")
@@ -195,10 +199,17 @@ def test_config_registry_knows_the_ten_names():
 
 def test_unported_branches_raise():
     cfg = reduced(get_config("llama3.2-3b"))
-    for changes in ({"family": "vlm"}, {"family": "encdec"},
-                    {"family": "hybrid", "attn_period": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            T.init_params(0, dataclasses.replace(cfg, **changes), device="cpu")
+    for family in ("vlm", "encdec"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+            T.init_params(0, dataclasses.replace(cfg, family=family), device="cpu")
+    # jamba as configured: its MoE layers raise; with moe=None it builds
+    jamba = reduced(get_config("jamba-v0.1-52b"))
+    for build in (lambda c: T.init_params(0, c, device="cpu"), T.param_spec):
+        with pytest.raises(NotImplementedError, match="MoE FFN.*ROADMAP A13b"):
+            build(jamba)
+    spec = T.param_spec(dataclasses.replace(jamba, moe=None))
+    assert set(spec["layers"]) == {f"l{j}" for j in range(8)}
+    assert "attn" in spec["layers"]["l4"] and "mamba" in spec["layers"]["l0"]
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache", "transformer_params_from_numpy",
