@@ -19,9 +19,12 @@ no install: it puts ``src/`` on the path itself).  Phases:
    wire at each cut, eager and fused; then an int8 split at pool16, no AE;
 5. serve 4 clients through ``run_clients`` and a 4-slot ``TailServer``;
 6. (Z2) hold ``flash_attention`` against its plain version at the
-   llama3.2-3b prefill shape and four more masks (window, non-causal,
-   Sq < Sk, ragged), each in bf16 and f32, timed beside
-   ``scaled_dot_product_attention``;
+   llama3.2-3b and jamba prefill shapes and four more masks (window,
+   non-causal, Sq < Sk, ragged), each in bf16 (the ``wgmma_bf16`` route) and
+   f32 (``simt_f32``), timed beside ``scaled_dot_product_attention``; every
+   bf16 row again on the mask-edge probe (``ref.flash_edge_probe``), where
+   a key off by one at a causal, window or key-range edge moves the output
+   far past the bf16 bar;
 7. (Z3) hold ``rwkv6_scan`` against its plain version at the rwkv6-1.6b
    prefill and decode shapes and a ragged one;
 8. (Z4) serve full-width, full-depth llama3.2-3b (bf16, random weights)
@@ -45,7 +48,8 @@ no install: it puts ``src/`` on the path itself).  Phases:
 
 Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10) runs with the launch counts set
 to 0 just before it and read just after; a served run's prefill and decode
-are counted apart as well.  Any failed check raises, so the
+are counted apart as well, and ``flash_attention``'s launches by route
+(``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32 one).  Any failed check raises, so the
 script exits non-zero and prints no result.  It exits non-zero as well
 where CUDA is not available.
 """
@@ -99,7 +103,8 @@ EXTRA_SHAPES = [("n1", 1, 512, 256), ("ragged_rows", 4237, 96, 48),
 # at the jamba-v0.1-52b prefill (H 32, K 8: a GQA group of 4, not 3) and
 # around them: (label, B, Sq, Sk, H, K, D, causal, window, dtype)
 # Each mask also in f32, where the bar (1e-5) is far below what a key off by
-# one at the window's or the alignment's edge would move.
+# one at the window's or the alignment's edge would move; the bf16 rows run
+# the mask-edge probe for that.
 FLASH_SHAPES = [
     ("llama_prefill", 4, 2000, 2000, 24, 8, 128, True, None, torch.bfloat16),
     ("llama_f32", 4, 1000, 1000, 24, 8, 128, True, None, torch.float32),
@@ -114,6 +119,9 @@ FLASH_SHAPES = [
     ("ragged777", 4, 777, 777, 24, 8, 128, True, None, torch.bfloat16),
     ("ragged777_f32", 4, 777, 777, 24, 8, 128, True, None, torch.float32),
 ]
+# flash_attention against its plain version, as tests/test_kernels.py holds
+# the TPU kernel to its ref
+FLASH_BAR = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # rwkv6_scan at the rwkv6-1.6b prefill and decode (H 32, D 64):
 # (label, B, S, H, D, nonzero initial state)
 RWKV_SHAPES = [("rwkv_prefill", 4, 1000, 32, 64, False), ("rwkv_decode", 4, 1, 32, 64, True),
@@ -382,18 +390,35 @@ def live_pairs(sq, sk, causal, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
-    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
-    k, v = (torch.randn((b, sk, kh, d), generator=gen, device="cuda").to(dtype)
-            for _ in range(2))
+def flash_err(label, q, k, v, causal, window) -> tuple:
+    """Max |kernel - plain| of ``flash_attention`` and the plain output;
+    raises past the bar."""
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    # as tests/test_kernels.py holds the TPU kernel to its ref
-    bar = 1e-5 if dtype == torch.float32 else 2e-2
-    if got.dtype != dtype or not torch.isfinite(got).all() or err > bar:
-        raise AssertionError(f"flash_attention at {label}: max err {err} (bar {bar})")
+    if got.dtype != q.dtype or not torch.isfinite(got).all() or err > FLASH_BAR[q.dtype]:
+        raise AssertionError(f"flash_attention at {label}: max err {err} "
+                             f"(bar {FLASH_BAR[q.dtype]})")
+    return err, want
+
+
+def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, sk, kh, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    err, want = flash_err(label, q, k, v, causal, window)
+    # the mask-edge probe: rising scores find the causal (or key-range)
+    # edge, falling ones the window's
+    probe = {}
+    edges = ([True] if causal or window is None else []) + ([False] if window else [])
+    if dtype == torch.bfloat16:
+        for rising in edges:
+            pq, pk, pv = ref.flash_edge_probe(b, sq, sk, h, kh, d, rising=rising, seed=sq,
+                                              device="cuda")
+            probe["rising" if rising else "falling"] = flash_err(
+                f"{label} edge probe", pq, pk, pv, causal, window)[0]
+            del pq, pk, pv
     # the library yardstick: SDPA with the same mask, heads first, GQA as is
     mask = None
     if window is not None or (causal and sq != sk):
@@ -408,13 +433,14 @@ def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               is_causal=causal and mask is None, enable_gqa=True)
     lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
-    if lib_err > 2 * bar:
+    if lib_err > 2 * FLASH_BAR[dtype]:
         raise AssertionError(f"SDPA at {label} is not the same function: err {lib_err}")
     run = lambda: FA.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
     pairs = live_pairs(sq, sk, causal, window)
     e = {"shape": label, "B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
          "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
-         "max_abs_err": err, "library_max_abs_err": lib_err, "live_pairs": pairs,
+         "route": FA.ROUTES[dtype], "max_abs_err": err, "edge_probe_err": probe,
+         "library_max_abs_err": lib_err, "live_pairs": pairs,
          "ms": device_ms(run), "call_ms": call_ms(run),
          "plain_ms": device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                                 window=window), reps=3),
@@ -516,11 +542,17 @@ def top2_margin(logits: torch.Tensor) -> torch.Tensor:
     return top[..., 0] - top[..., 1]
 
 
+# the zoo kernels' device function names, as the profiler reports them
+ZOO_KERNEL_NAMES = {"flash_attention": "flash_fwd", "rwkv6_scan": "wkv6",
+                    "mamba_scan": "selective_scan"}
+
+
 def device_breakdown(fn, top=6) -> dict:
     """One run of ``fn`` under ``torch.profiler``: the device's busy time
     (the union of its kernel, copy and fill intervals) against the wall
-    time, and device time by kernel name (the ``top`` largest).  The
-    profiler slows the host, so the busy share reads low."""
+    time, device time by kernel name (the ``top`` largest) and that of each
+    zoo kernel, with its share of the device time.  The profiler slows the
+    host, so the busy share reads low."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -539,9 +571,12 @@ def device_breakdown(fn, top=6) -> dict:
         by_name[name] = by_name.get(name, 0.0) + (hi - lo)
     total = sum(by_name.values())
     rows = sorted(by_name.items(), key=lambda r: -r[1])[:top]
+    zoo = {k: sum(us for name, us in by_name.items() if part in name)
+           for k, part in ZOO_KERNEL_NAMES.items()}
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "busy_share": busy / wall_us,
             "n_kernel_names": len(by_name),
-            "top": [{"kernel": k[:80], "ms": us / 1e3, "share": us / total} for k, us in rows]}
+            "top": [{"kernel": k[:80], "ms": us / 1e3, "share": us / total} for k, us in rows],
+            "zoo_kernels": {k: {"ms": us / 1e3, "share": us / total} for k, us in zoo.items()}}
 
 
 def served_cfg(arch, **changes):
@@ -567,6 +602,16 @@ def check_launches(what, counts, want) -> None:
     got = {k: sum(c.values()) for k, c in counts.items()}
     if any(n != want.get(k, 0) for k, n in got.items()):
         raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def check_flash_route(what, counts, dtype, n) -> dict:
+    """``flash_attention`` launched ``n`` times, all on ``dtype``'s route."""
+    want = {route: 0 for route in FA.ROUTES.values()}
+    want[FA.ROUTES[getattr(torch, dtype)]] = n
+    if counts["flash_attention"] != want:
+        raise AssertionError(f"{what}: flash_attention launches {counts['flash_attention']}, "
+                             f"want {want}")
+    return want
 
 
 def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
@@ -603,6 +648,7 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
     out["launches"] = counts
     check_launches(f"{arch} {dtype} served", counts,
                    {k: n + NEW_TOKENS * per_step[k] for k, n in per_prefill.items()})
+    check_flash_route(f"{arch} {dtype} served", counts, dtype, per_prefill["flash_attention"])
     for r in reqs:
         if len(r.out) != NEW_TOKENS or not all(0 <= t < cfg.vocab for t in r.out):
             raise AssertionError(f"{arch}: request {r.rid} got {r.out}")
@@ -621,6 +667,11 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
         out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
         out["prefill_launches"] = launch_counts()
         check_launches(f"{arch} {dtype} prefill", out["prefill_launches"], per_prefill)
+        out["flash_routes_prefill"] = check_flash_route(
+            f"{arch} {dtype} prefill", out["prefill_launches"], dtype,
+            per_prefill["flash_attention"])
+        print(f"{arch} {dtype}: flash_attention launches a prefill {out['flash_routes_prefill']}",
+              flush=True)
         steps = [logits.float()]
         reset_launches()
         t0 = time.perf_counter()
@@ -712,8 +763,8 @@ def split_lens(cfg, params, toks) -> dict:
     counts = launch_counts()
     if not torch.isfinite(logits.float()).all() or logits.shape != (toks.shape[0], 1, cfg.vocab):
         raise AssertionError(f"split logits {tuple(logits.shape)} not finite")
-    if (counts["flash_attention"]["tiled"] != cfg.n_layers
-            or sum(counts["bottleneck_compress"].values()) != 1
+    check_flash_route("Z4 split", counts, cfg.dtype, cfg.n_layers)
+    if (sum(counts["bottleneck_compress"].values()) != 1
             or counts["bottleneck_decompress"]["tiled"] != 1):
         raise AssertionError(f"split launches {counts}")
     with torch.inference_mode():
@@ -755,6 +806,7 @@ def e2e_check(arch, n_layers=2, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> d
     counts = launch_counts()
     check_launches(f"Z6 {arch}", counts,
                    {k: n + n_new * per_step[k] for k, n in per_prefill.items()})
+    check_flash_route(f"Z6 {arch}", counts, "float32", per_prefill["flash_attention"])
     want = greedy_run(params_cpu, "cpu")
     top = float(want[:, 0].abs().max())
     prefill_err = float((got[:, 0] - want[:, 0]).abs().max()) / top
@@ -801,9 +853,11 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
+    # ptxas -v: each kernel function, its registers, shared memory and spills
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "warpgroup",
+                                       "wgmma")):
                 print(f"  {name}: {line.strip()}")
 
     # phase 3

@@ -2,14 +2,21 @@
 
 Replaces the TPU kernel ``flash_attention``
 (``repro/kernels/flash_attention.py:86``, ``pl.pallas_call`` at ``:106``)
-with the CUDA C++ kernel in ``csrc/flash_attention.cu`` for ``sm_90a``.
+with the CUDA C++ kernels in ``csrc/flash_attention.cu`` for ``sm_90a``, one
+route per dtype and no switch between them:
+
+- ``wgmma_bf16``: bf16 inputs on the tensor cores.  TMA loads q, k and v
+  into a two-stage ring of 128-key tiles on ``mbarrier``s; Q K^T and P V
+  are ``wgmma`` with f32 accumulators, and P is rounded to bf16 for the
+  second product, as the JAX model's chunked attention rounds it.  TMA
+  needs each tensor's address on a 16-byte boundary.
+- ``simt_f32``: f32 inputs in f32 FMA on the CUDA cores, as the TPU kernel
+  computes, one block per (batch * head, 64-query tile).
 
 Bound on an H100: the bytes of q, k, v and the output once at 3.35 TB/s
 against ``4*B*H*D*(live query-key pairs)`` operations at 989 TFLOP/s (bf16
-inputs) or 67 TFLOP/s (f32 inputs).  The kernel computes in f32 FMA on the
-CUDA cores, as the TPU kernel computes in f32, one block per (batch * head,
-64-query tile) with a loop over 64-key tiles inside it; key tiles no query
-of the tile can see are skipped.  Any Sq <= Sk: the ragged edge is masked.
+inputs) or 67 TFLOP/s (f32 inputs).  Key tiles no query of a block can see
+are skipped.  Any Sq <= Sk: the ragged edge is masked.
 """
 from __future__ import annotations
 
@@ -23,11 +30,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 # launches of the CUDA kernel (a CPU call launches nothing)
-launches = {"tiled": 0}
+launches = {"wgmma_bf16": 0, "simt_f32": 0}
 
 # what the dense configurations use: head dim 128, in float32 or bfloat16
 HEAD_DIMS = (128,)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "simt_f32", torch.bfloat16: "wgmma_bf16"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -63,10 +71,10 @@ def _check_inputs(q, k, v, window) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0 and Sq <= Sk.
-    Returns (B, Sq, H, D) in q's dtype; the math is f32.
+    Returns (B, Sq, H, D) in q's dtype; scores, softmax and sums are f32.
 
     A CPU tensor goes to :func:`flash_attention_ref`; a CUDA tensor launches
-    the kernel on the current stream, or raises.
+    its dtype's kernel on the current stream (``ROUTES``), or raises.
     """
     _check_inputs(q, k, v, window)
     if q.device.type == "cpu":
@@ -77,6 +85,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, kh = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on a 16-byte boundary for the TMA "
+                                 f"loads; it starts at {t.data_ptr():#x}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -87,5 +100,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             b, sq, sk, h, kh, d, int(causal), window or 0, 1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, code, "flash_attention")
-    launches["tiled"] += 1
+    launches[ROUTES[q.dtype]] += 1
     return out

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -40,6 +41,31 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_edge_probe(b, sq, sk, h, kh, d, *, rising: bool, seed: int = 0,
+                     dtype=torch.bfloat16, device="cpu") -> tuple:
+    """Inputs (q, k, v) on which attention picks one key a row.
+
+    Every score is +-256 * key position (``rising`` or not), the sum of
+    65536 * (position // 256) and 256 * (position % 256), whose factors bf16
+    holds exactly, so the f32 dot products are exact for positions below
+    65536.  Neighbouring keys' softmax weights then differ by a factor of
+    e**(256 / sqrt(d)), over 8e6 at d <= 256: each output row is the v row
+    of its last live key (rising: the causal or the key-range edge) or of
+    its first (falling: the window's edge), and a key off by one at that
+    edge moves the row by the difference of two random v rows, far above
+    the bf16 bar of 2e-2.
+    """
+    sign = 1.0 if rising else -1.0
+    q = np.zeros((b, sq, h, d), np.float32)
+    q[..., 0], q[..., 1] = sign * 65536.0, sign * 256.0
+    pos = np.arange(sk)
+    k = np.zeros((b, sk, kh, d), np.float32)
+    k[..., 0] = (pos // 256)[None, :, None]
+    k[..., 1] = (pos % 256)[None, :, None]
+    v = np.random.default_rng(seed).standard_normal((b, sk, kh, d)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device=device, dtype=dtype) for a in (q, k, v))
 
 
 def rwkv6_scan_ref(r, k, v, w, u, state):

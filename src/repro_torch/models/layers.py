@@ -64,10 +64,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     """Multi-head GQA self-attention over a sequence.
 
     q: (B,Sq,H,D); k,v: (B,Sk,K,D) with H % K == 0.  Returns (B,Sq,H,D).
-    The kernel takes the kv heads as they are (no ``repeat_kv``) and keeps
-    the softmax weights in f32 throughout; the reference's chunked path
-    (Sq*Sk > 512**2) rounds them to the input dtype before the P.V product,
-    so in bf16 the two differ by that rounding.  As the reference's plain
+    The kernel takes the kv heads as they are (no ``repeat_kv``).  In bf16
+    it rounds the softmax weights to bf16 before the P.V product, as the
+    reference's chunked path (Sq*Sk > 512**2) does; in f32, and in the
+    plain version on the CPU, they stay f32.  As the reference's plain
     path, a single query is not causally masked: it sits at the last key
     position, so the mask would change nothing.
     """

@@ -5,6 +5,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import math  # noqa: E402
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -12,7 +14,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
-from repro_torch.kernels import launch_counts, ops  # noqa: E402
+from repro_torch.kernels import launch_counts, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
@@ -75,6 +77,113 @@ def test_plain_flash_matches_ref_at_ragged_lengths(case):
     assert got.dtype == tq.dtype and got.shape == tq.shape
     want = _np(jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window))
     np.testing.assert_allclose(_np(got), want, atol=TOL[dtype])
+
+
+# the mask-edge probe (ref.flash_edge_probe) on whole tiles, at each mask:
+# b, sq, sk, h, kh, d, causal, window, rising.  Rising scores pick each row's
+# last live key (the causal edge, or Sk - 1 without it), falling ones its
+# first (the window's edge, or key 0 without it).
+PROBE_CASES = [
+    (1, 256, 256, 4, 2, 128, True, None, True),
+    (1, 256, 256, 4, 2, 128, True, 100, True),
+    (1, 256, 256, 4, 2, 128, True, 100, False),
+    (1, 128, 384, 4, 2, 128, True, None, True),
+    (1, 256, 256, 2, 1, 128, False, 77, False),
+    (1, 256, 256, 2, 1, 128, False, None, True),
+]
+
+
+def _probe_keys(sq, sk, causal, window, rising):
+    """Each row's picked key and, where the row sees two keys or more, the
+    key next to it inside the mask (what an edge off by one would pick)."""
+    qp = np.arange(sq) + (sk - sq)
+    hi = qp if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(sq, np.int64)
+    pick, step = (hi, -1) if rising else (lo, 1)
+    return pick, (pick + step)[hi > lo], hi > lo
+
+
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_plain_flash_matches_pallas_kernel_and_ref_at_mask_edges(case):
+    b, sq, sk, h, kh, d, causal, window, rising = case
+    tq, tk, tv = ref.flash_edge_probe(b, sq, sk, h, kh, d, rising=rising, seed=sq + sk)
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv))
+    got = _np(flash_attention(tq, tk, tv, causal=causal, window=window))
+    pallas = _np(pallas_flash(jq, jk, jv, causal=causal, window=window, interpret=True))
+    want = _np(jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window))
+    np.testing.assert_allclose(got, pallas, atol=TOL["bfloat16"])
+    np.testing.assert_allclose(got, want, atol=TOL["bfloat16"])
+    # each row is the v row of its picked key; the key next to it is far off
+    vh = np.repeat(_np(tv), h // kh, axis=2)
+    pick, beside, many = _probe_keys(sq, sk, causal, window, rising)
+    np.testing.assert_allclose(got, vh[:, pick], atol=TOL["bfloat16"])
+    assert np.abs(vh[:, beside] - vh[:, pick[many]]).max() > 50 * TOL["bfloat16"]
+
+
+def _wgmma_kernel_numerics(q, k, v, *, causal, window, bq=128, bk=128):
+    """The arithmetic of the bf16 CUDA kernel, written out in PyTorch (CPU):
+    bq-query blocks over the key range the block can see, in bk-key tiles;
+    f32 scores of the bf16 inputs, scaled by scale * log2 e, exp2; P rounded
+    to bf16 for the P.V product, its row sum and the accumulator f32."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    k = torch.repeat_interleave(k, h // kh, dim=2).float()
+    v = torch.repeat_interleave(v, h // kh, dim=2).float()
+    scale_log2 = torch.tensor(math.log2(math.e) / math.sqrt(d), dtype=torch.float32)
+    out = torch.empty((b, sq, h, d), dtype=torch.float32)
+    for q0 in range(0, sq, bq):
+        rows = torch.arange(q0, min(q0 + bq, sq))
+        qp = rows + (sk - sq)
+        k_end = min(sk, int(qp[-1]) + 1) if causal else sk
+        k_begin = max(0, int(qp[0]) - window + 1) // bk * bk if window else 0
+        qt = q[:, rows].float()
+        m = torch.full((b, h, len(rows)), -1e30)
+        l = torch.zeros((b, h, len(rows)))
+        acc = torch.zeros((b, h, len(rows), d))
+        for k0 in range(k_begin, k_end, bk):
+            keys = torch.arange(k0, min(k0 + bk, sk))
+            s = torch.einsum("bqhd,bkhd->bhqk", qt, k[:, keys]) * scale_log2
+            live = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+            if causal:
+                live &= keys[None, :] <= qp[:, None]
+            if window:
+                live &= keys[None, :] > qp[:, None] - window
+            s = s.masked_fill(~live, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None]).masked_fill(~live, 0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.bfloat16().float(), v[:, keys])
+            m = m_new
+        out[:, rows] = (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2)
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES + RAGGED_CASES if c[-1] == "bfloat16"])
+def test_bf16_kernel_numerics_fit_the_bar(case):
+    """The bf16 kernel's roundings (P in bf16, base-2 softmax) against the
+    Pallas kernel and its oracle, which keep P in f32, at the bf16 bar."""
+    *_, causal, window, dtype = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(case, sum(case[:6])), dtype)
+    got = _np(_wgmma_kernel_numerics(tq, tk, tv, causal=causal, window=window))
+    want = _np(jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window))
+    np.testing.assert_allclose(got, want, atol=TOL[dtype])
+    sq, sk = case[1:3]
+    if sq % min(128, sq) == 0 and sk % min(128, sk) == 0:
+        pallas = _np(pallas_flash(jq, jk, jv, causal=causal, window=window, interpret=True))
+        np.testing.assert_allclose(got, pallas, atol=TOL[dtype])
+
+
+# Sq * Sk above 512**2: the reference model takes _flash_chunked, which
+# rounds P to bf16 as the kernel does
+@pytest.mark.parametrize("window", [None, 200])
+def test_bf16_kernel_numerics_match_the_reference_models_chunked_attention(window):
+    case = (1, 640, 640, 4, 2, 128, True, window, "bfloat16")
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(case, 640), "bfloat16")
+    got = _np(_wgmma_kernel_numerics(tq, tk, tv, causal=True, window=window))
+    want = _np(JL.attention(jq, jk, jv, window=window))
+    np.testing.assert_allclose(got, want, atol=TOL["bfloat16"])
 
 
 def test_cpu_flash_launches_nothing_and_checks_inputs():

@@ -13,7 +13,7 @@ from repro_torch.core import bottleneck as B  # noqa: E402
 from repro_torch.kernels import launch_counts, ref, reset_launches  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import ROUTES, flash_attention  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.models.vgg import vgg_cifar  # noqa: E402
@@ -103,11 +103,13 @@ def test_split_runtime_on_the_card_matches_the_cpu_path(cuda):
     assert sorted(res) == [0, 1] and server.n_batches == 1
 
 
-# b, sq, sk, h, kh, d, causal, window: ragged lengths, Sq < Sk, GQA, windows;
-# the kernel takes the dense configurations' head dim, 128
+# b, sq, sk, h, kh, d, causal, window: ragged lengths, Sq < Sk, GQA, windows,
+# and the head counts of llama3.2-3b (24 over 8) and jamba-v0.1-52b (32 over
+# 8); the kernel takes the dense configurations' head dim, 128
 FLASH_SHAPES = [(2, 77, 77, 4, 2, 128, True, None), (1, 200, 200, 8, 2, 128, True, 64),
                 (1, 50, 130, 4, 4, 128, True, None), (2, 33, 100, 2, 1, 128, False, 40),
-                (1, 1, 1, 4, 2, 128, True, None)]
+                (1, 1, 1, 4, 2, 128, True, None), (1, 256, 256, 24, 8, 128, True, None),
+                (1, 256, 256, 32, 8, 128, True, None)]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
@@ -119,12 +121,44 @@ def test_flash_attention_matches_plain(cuda, shape, dtype):
     q = torch.randn((b, sq, h, d), generator=g).to(cuda, dt)
     k, v = (torch.randn((b, sk, kh, d), generator=g).to(cuda, dt) for _ in range(2))
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    reset_launches()
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == {r: int(r == ROUTES[dt])
+                                                  for r in ROUTES.values()}
     assert got.dtype == dt and got.shape == q.shape
     # as tests/test_kernels.py holds the TPU kernel to its ref
     assert float((got.float() - want.float()).abs().max()) <= (2e-5 if dtype == "float32"
                                                                else 2e-2)
+
+
+# the mask-edge probe (ref.flash_edge_probe) at each mask: causal, window,
+# Sq < Sk, ragged, non-causal; rising scores find the causal or key-range
+# edge, falling ones the window's
+PROBE_SHAPES = [(1, 300, 300, 4, 2, True, None), (1, 300, 300, 4, 2, True, 64),
+                (2, 100, 333, 8, 2, True, 130), (1, 77, 77, 4, 4, True, None),
+                (1, 200, 200, 4, 2, False, None), (1, 200, 200, 4, 2, False, 50)]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("rising", [True, False])
+def test_flash_attention_bf16_mask_edges(cuda, shape, rising):
+    b, sq, sk, h, kh, causal, window = shape
+    q, k, v = ref.flash_edge_probe(b, sq, sk, h, kh, 128, rising=rising, seed=sq,
+                                   device=cuda)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+def test_flash_attention_refuses_a_misaligned_bf16_view(cuda):
+    q = torch.zeros((1, 8, 4, 128), dtype=torch.bfloat16, device=cuda)
+    flat = torch.zeros(8 * 2 * 128 + 1, dtype=torch.bfloat16, device=cuda)
+    k = flat[1:].view(1, 8, 2, 128)            # contiguous, 2 bytes off the boundary
+    assert k.is_contiguous() and k.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(q, k, k.clone())
 
 
 # b, s, h, d: one step, ragged S; the kernel takes rwkv6-1.6b's head dim, 64
