@@ -8,15 +8,18 @@ no install: it puts ``src/`` on the path itself).  Phases:
 1. print the card's name and power limit (``nvidia-smi``);
 2. (Z1) build the five CUDA kernels from ``src/repro_torch/csrc``, one nvcc
    each, all at once;
-3. hold each bottleneck kernel, and each branch of it, against its plain
-   PyTorch version on the card at the main path's shapes (full-width VGG16,
-   batch 8), N = 1, two ragged N and the llama3.2-3b cut of phase Z4, and
-   time the kernel, the plain version and ``torch.addmm`` of the matmul
-   alone on the device (CUDA-graph replay), and the kernel's wrapper as a
-   caller pays it (eager calls);
+3. hold each bottleneck kernel, on every tile of ``kernels/tiles.py``,
+   against its plain PyTorch version on the card at the main path's shapes
+   (full-width VGG16, batch 8), N = 1, two ragged N and the llama3.2-3b cut
+   of phase Z4, and every tile against every other bit for bit; time each
+   tile, the plain version and ``torch.addmm`` of the matmul alone on the
+   device (CUDA-graph replay with L2 warm, and again L2-flushed), and the
+   picked tile's wrapper as a caller pays it (eager calls); print picked /
+   fastest per shape;
 4. serve full-width VGG16 (random weights from a fixed seed, batch 8) with a
    ``SplitRuntime`` cut at pool16, pool23 and fc0_relu, an AE and an int8
    wire at each cut, eager and fused; then an int8 split at pool16, no AE;
+   each codec kernel launches 36 times in phases 4-5;
 5. serve 4 clients through ``run_clients`` and a 4-slot ``TailServer``;
 6. (Z2) hold ``flash_attention`` against its plain version at the
    llama3.2-3b and jamba prefill shapes and four more masks (window,
@@ -58,6 +61,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -72,7 +76,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import SERVED, get_config  # noqa: E402
 from repro_torch.core import bottleneck as B  # noqa: E402
 from repro_torch.core.bottleneck import latent_channels  # noqa: E402
-from repro_torch.kernels import _build, launch_counts, ref, reset_launches  # noqa: E402
+from repro_torch.kernels import _build, launch_counts, ref, reset_launches, tiles  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels import bottleneck_decompress as decomp  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -91,14 +95,18 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 BATCH = 8
+L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
 VGG_CUTS = {"relu3": 3, "pool16": 16, "pool23": 23, "flatten": 31, "fc0_relu": 33}
 # the zoo's served requests (Z4, Z5): prompt lengths, new tokens each
 LLAMA_PROMPTS = (2000, 1800, 1234, 777)
 RWKV_PROMPTS = (1000, 640, 333, 1)
 NEW_TOKENS = 16
 LLAMA_CUT_ROWS = len(LLAMA_PROMPTS) * max(LLAMA_PROMPTS)   # the (B*S, 3072) residual at the cut
+# beside the batch-8 cuts: N 1, ragged widths, one phase-5 client's two
+# images at pool23, and the llama3.2-3b cut
 EXTRA_SHAPES = [("n1", 1, 512, 256), ("ragged_rows", 4237, 96, 48),
-                ("ragged_cols", 777, 300, 100), ("llama_cut14", LLAMA_CUT_ROWS, 3072, 1536)]
+                ("ragged_cols", 777, 300, 100), ("pool23_client", 2 * 14 * 14, 512, 256),
+                ("llama_cut14", LLAMA_CUT_ROWS, 3072, 1536)]
 # flash_attention at the llama3.2-3b prefill (B 4, S 2000, H 24, K 8, D 128),
 # at the jamba-v0.1-52b prefill (H 32, K 8: a GQA group of 4, not 3) and
 # around them: (label, B, Sq, Sk, H, K, D, causal, window, dtype)
@@ -138,6 +146,10 @@ MAMBA_RTOL = 1e-5
 JAMBA = "jamba-v0.1-52b"
 SERVED_CUTS = (16, 23, 33)
 HEADLINE = "pool23"           # the shape whose numbers head each kernel's entry
+# each codec kernel's launches in phases 4-5: 3 cuts x (1 + 3 timed) in the
+# eager and again in the fused infer, 3 in each frame chain, 4 clients, and
+# 1 + 1 in the one-client infer
+VGG_CODEC_LAUNCHES = 36
 # Logits of the ae8 chain against the same chain through the plain versions,
 # relative to max |logit|.  The kernels sum in another order than cuBLAS, so
 # a latent that sits at a rounding tie of z / s may take the neighbouring
@@ -161,6 +173,15 @@ ULP_FACTOR = 2.0
 def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_ptxas(name, log) -> None:
+    """Every kernel function in ``log`` (``-Xptxas -v``) spills nothing and
+    uses fewer than 255 registers."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+    if not regs or max(regs) >= 255 or any(spills):
+        raise AssertionError(f"{name}: registers {regs}, spill bytes {spills}")
 
 
 def call_ms(fn, budget_ms: float = 30.0) -> float:
@@ -210,6 +231,19 @@ def device_ms(fn, reps: int = 10, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * reps)
 
 
+_FLUSH = []
+
+
+def flushed_ms(fn) -> float:
+    """Device time of one call with L2 cold: each call, in a replayed CUDA
+    graph, follows a write of a buffer larger than the 50 MB L2, and that
+    write, timed alone the same way, is taken off."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
+    flush = _FLUSH[0].zero_
+    return device_ms(lambda: (flush(), fn())) - device_ms(flush)
+
+
 def main_path_shapes(model, params) -> list:
     """(label, N, C, L) of the wire codec at each VGG16 cut, batch 8."""
     acts = model.activation_shapes(params, BATCH)
@@ -221,41 +255,56 @@ def main_path_shapes(model, params) -> list:
     return out + EXTRA_SHAPES
 
 
+def check_tiles(kernel, label, run, want, dims) -> dict:
+    """Run ``run(tile)`` on every codec tile: each result is held to the
+    plain version by ``want(out)`` (which raises past its bar and returns
+    the row's error fields) and to every other tile's bit for bit, and
+    timed by replay with L2 warm, L2-flushed, and (the picked tile) as a
+    caller pays it."""
+    n, k, m = dims
+    picked = tiles.pick_tile(n, k, m, tiles.sm_count(0))
+    e, outs = {"shape": label, "picked": picked}, {}
+    for t in tiles.TILES:
+        outs[t] = run(t)
+        torch.cuda.synchronize()
+        for key, v in want(t, outs[t]).items():
+            e[f"{t}_{key}"] = v
+        e[f"{t}_ms"] = device_ms(lambda t=t: run(t))
+        e[f"{t}_flushed_ms"] = flushed_ms(lambda t=t: run(t))
+    for t, out in outs.items():
+        if not all(torch.equal(a, b) for a, b in zip(out, outs[picked])):
+            raise AssertionError(f"{kernel}[{t}] at {label} differs from [{picked}] in some bit")
+    e["fastest"] = min(tiles.TILES, key=lambda t: e[f"{t}_ms"])
+    e["picked_over_fastest"] = e[f"{picked}_ms"] / e[f"{e['fastest']}_ms"]
+    e["max_abs_err"] = e[f"{picked}_max_abs_err"]
+    e["ms"], e["flushed_ms"] = e[f"{picked}_ms"], e[f"{picked}_flushed_ms"]
+    e["call_ms"] = call_ms(lambda: run(picked))
+    return e
+
+
 def check_compress(label, n, c, l, gen) -> dict:
     f = torch.randn((n, c), generator=gen, device="cuda").abs()
     w = torch.randn((c, l), generator=gen, device="cuda") / c ** 0.5
     b = 0.1 * torch.randn((l,), generator=gen, device="cuda")
     qr, sr = ref.bottleneck_compress_ref(f, w, b)
-    picked = comp.pick_branch(n, l)
-    e = {"shape": label, "N": n, "C": c, "L": l, "picked": picked}
-    outs = {}
-    for br in comp.BRANCHES:
-        if br == "rows" and not comp.rows_fits(l):
-            e["rows_ms"] = None     # 32 latent rows of L floats exceed shared memory
-            continue
-        q, s = comp.bottleneck_compress(f, w, b, branch=br)
-        torch.cuda.synchronize()
+
+    def want(t, out):
+        q, s = out
         dq = (q.int() - qr.int()).abs()
         if int(dq.max()) > 1:
-            raise AssertionError(f"compress[{br}] at {label}: a code is off by {int(dq.max())}")
+            raise AssertionError(f"compress[{t}] at {label}: a code is off by {int(dq.max())}")
         s_rel = float(((s - sr).abs() / sr).max())
         if s_rel > 1e-5:
-            raise AssertionError(f"compress[{br}] at {label}: scale rel err {s_rel}")
-        outs[br] = (q, s)
-        e[f"{br}_code_mismatch_frac"] = float((dq > 0).float().mean())
-        e[f"{br}_scale_rel_err"] = s_rel
-        e[f"{br}_max_abs_err"] = float((q.float() * s - qr.float() * sr).abs().max())
-        run = lambda br=br: comp.bottleneck_compress(f, w, b, branch=br)  # noqa: E731
-        e[f"{br}_ms"] = device_ms(run)
-        e[f"{br}_call_ms"] = call_ms(run)
-    if len(outs) == 2 and not all(torch.equal(a, b_) for a, b_ in zip(outs["rows"], outs["cols"])):
-        raise AssertionError(f"compress branches disagree at {label}")
-    e["fastest"] = min((br for br in comp.BRANCHES if e[f"{br}_ms"] is not None),
-                       key=lambda br: e[f"{br}_ms"])
-    e["max_abs_err"] = e[f"{picked}_max_abs_err"]
-    e["ms"], e["call_ms"] = e[f"{picked}_ms"], e[f"{picked}_call_ms"]
-    e["plain_ms"] = device_ms(lambda: ref.bottleneck_compress_ref(f, w, b))
-    e["library_ms"] = device_ms(lambda: torch.addmm(b, f, w))
+            raise AssertionError(f"compress[{t}] at {label}: scale rel err {s_rel}")
+        return {"code_mismatch_frac": float((dq > 0).float().mean()), "scale_rel_err": s_rel,
+                "max_abs_err": float((q.float() * s - qr.float() * sr).abs().max())}
+    e = {"shape": label, "N": n, "C": c, "L": l,
+         **check_tiles("compress", label, lambda t: comp.bottleneck_compress(f, w, b, tile=t),
+                       want, (n, c, l))}
+    plain = lambda: ref.bottleneck_compress_ref(f, w, b)  # noqa: E731
+    library = lambda: torch.addmm(b, f, w)  # noqa: E731
+    e["plain_ms"], e["plain_flushed_ms"] = device_ms(plain), flushed_ms(plain)
+    e["library_ms"], e["library_flushed_ms"] = device_ms(library), flushed_ms(library)
     e["bound_ms"], e["bound_by"] = bound_ms(4 * (n * c + c * l + l + n) + n * l,
                                             2 * n * c * l)
     return e
@@ -266,19 +315,23 @@ def check_decompress(label, n, c, l, gen) -> dict:
     s = 1e-3 + 0.1 * torch.rand((n, 1), generator=gen, device="cuda")
     w = torch.randn((l, c), generator=gen, device="cuda") / l ** 0.5
     b = 0.1 * torch.randn((c,), generator=gen, device="cuda")
-    want = ref.bottleneck_decode_ref(q, s, w, b)
-    got = decomp.bottleneck_decompress(q, s, w, b)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    top = float(want.abs().max())
-    if err > 1e-4 * top:
-        raise AssertionError(f"decompress at {label}: max err {err}, max |out| {top}")
+    expect = ref.bottleneck_decode_ref(q, s, w, b)
+    top = float(expect.abs().max())
+
+    def want(t, out):
+        err = float((out[0] - expect).abs().max())
+        if err > 1e-4 * top:
+            raise AssertionError(f"decompress[{t}] at {label}: max err {err}, max |out| {top}")
+        return {"max_abs_err": err, "rel_err": err / top}
+    e = {"shape": label, "N": n, "L": l, "C": c,
+         **check_tiles("decompress", label,
+                       lambda t: (decomp.bottleneck_decompress(q, s, w, b, tile=t),),
+                       want, (n, l, c))}
     z = q.float() * s
-    e = {"shape": label, "N": n, "L": l, "C": c, "max_abs_err": err, "rel_err": err / top,
-         "ms": device_ms(lambda: decomp.bottleneck_decompress(q, s, w, b)),
-         "call_ms": call_ms(lambda: decomp.bottleneck_decompress(q, s, w, b)),
-         "plain_ms": device_ms(lambda: ref.bottleneck_decode_ref(q, s, w, b)),
-         "library_ms": device_ms(lambda: torch.addmm(b, z, w))}
+    plain = lambda: ref.bottleneck_decode_ref(q, s, w, b)  # noqa: E731
+    library = lambda: torch.addmm(b, z, w)  # noqa: E731
+    e["plain_ms"], e["plain_flushed_ms"] = device_ms(plain), flushed_ms(plain)
+    e["library_ms"], e["library_flushed_ms"] = device_ms(library), flushed_ms(library)
     e["bound_ms"], e["bound_by"] = bound_ms(n * l + 4 * (n + l * c + c + n * c),
                                             2 * n * l * c)
     return e
@@ -765,7 +818,7 @@ def split_lens(cfg, params, toks) -> dict:
         raise AssertionError(f"split logits {tuple(logits.shape)} not finite")
     check_flash_route("Z4 split", counts, cfg.dtype, cfg.n_layers)
     if (sum(counts["bottleneck_compress"].values()) != 1
-            or counts["bottleneck_decompress"]["tiled"] != 1):
+            or sum(counts["bottleneck_decompress"].values()) != 1):
         raise AssertionError(f"split launches {counts}")
     with torch.inference_mode():
         encode_ms = device_ms(lambda: B.encode_wire(ae, x))
@@ -859,6 +912,8 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "warpgroup",
                                        "wgmma")):
                 print(f"  {name}: {line.strip()}")
+        if name.startswith("bottleneck_"):
+            check_ptxas(name, log)
 
     # phase 3
     model = vgg16()
@@ -871,10 +926,11 @@ def main() -> int:
         dec_rows.append(check_decompress(label, n, c, l, gen))
         print("decompress", json.dumps(dec_rows[-1]), flush=True)
         torch.cuda.empty_cache()
-    for br in comp.BRANCHES:
-        wins = [e["shape"] for e in comp_rows if e["fastest"] == br]
-        picks = [e["shape"] for e in comp_rows if e["picked"] == br]
-        print(f"compress[{br}] fastest at {wins}; picked at {picks}")
+    for kernel, rows in (("compress", comp_rows), ("decompress", dec_rows)):
+        for e in rows:
+            fastest = e["fastest"]
+            print(f"{kernel} {e['shape']}: picked / fastest = {e['picked']} {e['ms']:.5f} / "
+                  f"{fastest} {e[fastest + '_ms']:.5f} ms = {e['picked_over_fastest']:.3f}")
 
     # phases 4-5, counted
     x = torch.randn((BATCH, 224, 224, 3), generator=torch.Generator().manual_seed(0)).cuda()
@@ -883,9 +939,9 @@ def main() -> int:
     vgg_counts = launch_counts()
     print("served", json.dumps(served), flush=True)
     for kernel in ("bottleneck_compress", "bottleneck_decompress"):
-        for br, n in vgg_counts[kernel].items():
-            if n == 0:
-                raise AssertionError(f"{kernel}[{br}] was not launched on the served path")
+        if sum(vgg_counts[kernel].values()) != VGG_CODEC_LAUNCHES:
+            raise AssertionError(f"{kernel} launched {vgg_counts[kernel]} on the served path, "
+                                 f"want {VGG_CODEC_LAUNCHES} in all")
     del model, params, x
     torch.cuda.empty_cache()
 
@@ -943,7 +999,7 @@ def main() -> int:
         path, counts = paths[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": sum(counts[name].values()),
-                "launches_on": path, "launches_by_branch": counts[name],
+                "launches_on": path, "launches_by": counts[name],
                 "launches_elsewhere": {k: sum(c[name].values()) for k, c in also.items()},
                 "max_abs_err": max(e["max_abs_err"] for e in rows),
                 "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

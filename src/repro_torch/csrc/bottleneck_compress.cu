@@ -3,167 +3,118 @@
 //
 // Replaces the TPU kernel bottleneck_compress (repro/kernels/bottleneck_compress.py:80,
 // pallas_call at :94).  Shapes: f (N, C) f32, w (C, L) f32, b (L,) f32 ->
-// q (N, L) int8, s (N,) f32, any N, C, L: every load and store is masked.
+// q (N, L) int8, s (N,) f32, any N, C, L: every copy and store is masked.
 //
 // Bound on an H100 (3.35 TB/s, 67 TFLOP/s float32 off the tensor cores):
 // 2*N*C*L operations against 4*(N*C + C*L + L + N) + N*L bytes.  The cuts of
-// a batch-8 VGG16 with many rows (relu3, pool16, pool23) are bound by
-// operations; flatten and fc0_relu (N = 8, w of 1.26 GB and 33.5 MB) by the
-// bytes of w.
+// a batch-8 VGG16 with many rows (pool16, pool23) and the llama3.2-3b cut are
+// bound by operations; relu3 (C 64) and the N = 8 cuts (flatten, fc0_relu,
+// w of 1.26 GB and 33.5 MB) by bytes.
 //
 // The per-row amax needs the whole latent row before any code is written,
-// which the TPU kernel gets from one (rows, L) VMEM block.  Two branches:
-//  * rows: one block owns 32 rows, loops over L in 64-wide chunks (each an
-//    f32 product over C through shared-memory tiles), keeps relu(z + b) for
-//    all of L in dynamic shared memory, and quantises in place.  The latent
-//    never reaches device memory, but it takes at least as many row tiles as
-//    the card has SMs to fill it, and 32*L floats must fit in shared memory.
-//  * cols: the grid covers (8-row, 64-column) tiles, so a handful of rows
-//    still spreads over the card; each tile writes its latent to a scratch
-//    (N, L) and its row maxima to an (N,) scratch by atomicMax on the bits of
-//    non-negative floats, which is exact and order-free; a second pass
-//    quantises.
-// bottleneck_compress_pick chooses rows exactly when it fills the card and
-// fits; chip_smoke.py times both branches at every main-path shape.
-#include "tile_product.cuh"
+// which the TPU kernel gets from one (rows, L) VMEM block.  Here one path:
+// the product runs on sgemm_tile.cuh's pipelined tile, picked by shape
+// (kernels/tiles.py), and its epilogue writes relu(z + b) to a scratch (N, L)
+// and folds each row's maximum into an (N,) scratch by atomicMax on the bits
+// of non-negative floats, which is exact and order-free; a second, light
+// pass quantises.  The grid covers the output tiles, so a handful of rows
+// still spreads over the card.
+#include "sgemm_tile.cuh"
 
 namespace {
 
-constexpr int kBK = 32;
-using RowsTile = sei::Tile<32, 64, kBK, 2, 4>;  // 256 threads
-using ColsTile = sei::Tile<8, 64, kBK, 1, 2>;   // 256 threads, one warp per row
-static_assert(ColsTile::kThreadsX == 32, "cols tile reduces each row within one warp");
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::kThreads, Cfg::MIN_BLOCKS)
+compress_product(const float* __restrict__ f, const float* __restrict__ w,
+                 const float* __restrict__ bias, float* __restrict__ z,
+                 unsigned* __restrict__ row_max, int n, int c, int l, int f_bytes, int w_bytes) {
+  extern __shared__ float4 smem4[];
+  int row0, col0;
+  sei::tile_origin<Cfg>(l, row0, col0);
+  float acc[Cfg::TM][Cfg::TN];
+  sei::tile_product<Cfg, float>(f, nullptr, w, n, c, l, row0, col0, f_bytes, w_bytes,
+                                reinterpret_cast<float*>(smem4), acc);
 
-size_t rows_smem_bytes(int l) {
-  return sizeof(float) * (RowsTile::kSmemFloats + (size_t)32 * l);
-}
-
-__global__ void __launch_bounds__(RowsTile::kThreads)
-compress_rows(const float* __restrict__ f, const float* __restrict__ w,
-              const float* __restrict__ bias, int8_t* __restrict__ q,
-              float* __restrict__ s, int n, int c, int l) {
-  constexpr int BM = 32, BN = 64;
-  extern __shared__ float smem[];
-  float* z = smem + RowsTile::kSmemFloats;  // [BM][l]
-  const int row0 = blockIdx.x * BM;
-  const int tx = threadIdx.x % RowsTile::kThreadsX;
-  const int ty = threadIdx.x / RowsTile::kThreadsX;
-  auto load_f = [=](int r, int k) { return r < n ? f[(size_t)r * c + k] : 0.f; };
-
-  for (int col0 = 0; col0 < l; col0 += BN) {
-    float acc[2][4];
-    sei::tile_product<BM, BN, kBK, 2, 4>(load_f, w, c, l, row0, col0, smem, acc);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < Cfg::TM; ++i) {
+    const int r = sei::tile_row<Cfg>(row0, i);
+    float mx = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + i * RowsTile::kThreadsY;
-        const int cc = col0 + tx + j * RowsTile::kThreadsX;
-        if (cc < l) z[r * l + cc] = sei::relu_pos(acc[i][j] + bias[cc]);
+    for (int j0 = 0; j0 < Cfg::TN; j0 += Cfg::V) {
+      const int cc = sei::tile_col<Cfg>(col0, j0);
+      float v[Cfg::V];
+#pragma unroll
+      for (int u = 0; u < Cfg::V; ++u) {
+        v[u] = cc + u < l ? sei::relu_pos(acc[i][j0 + u] + bias[cc + u]) : 0.f;
+        mx = fmaxf(mx, v[u]);
       }
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += RowsTile::kThreads / 32) {
-    const int row = row0 + r;
-    if (row >= n) break;
-    float amax = 0.f;
-    for (int j = lane; j < l; j += 32) amax = fmaxf(amax, z[r * l + j]);
+      if (r >= n || cc >= l) continue;
+      float* out = z + (size_t)r * l + cc;
+      if constexpr (Cfg::V == 4) {
+        if (l % 4 == 0) {
+          *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+          continue;
+        }
+      }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float sc = sei::row_scale(amax);
-    for (int j = lane; j < l; j += 32) q[(size_t)row * l + j] = sei::quantise(z[r * l + j], sc);
-    if (lane == 0) s[row] = sc;
-  }
-}
-
-__global__ void __launch_bounds__(ColsTile::kThreads)
-compress_cols_product(const float* __restrict__ f, const float* __restrict__ w,
-                      const float* __restrict__ bias, float* __restrict__ z,
-                      unsigned* __restrict__ row_max, int n, int c, int l) {
-  constexpr int BM = 8, BN = 64;
-  __shared__ float smem[ColsTile::kSmemFloats];
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const int tx = threadIdx.x % ColsTile::kThreadsX;
-  const int ty = threadIdx.x / ColsTile::kThreadsX;
-  auto load_f = [=](int r, int k) { return r < n ? f[(size_t)r * c + k] : 0.f; };
-  float acc[1][2];
-  sei::tile_product<BM, BN, kBK, 1, 2>(load_f, w, c, l, row0, col0, smem, acc);
-
-  const int r = row0 + ty;  // the same for the whole warp
-  if (r >= n) return;
-  float m = 0.f;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int cc = col0 + tx + j * ColsTile::kThreadsX;
-    if (cc < l) {
-      const float v = sei::relu_pos(acc[0][j] + bias[cc]);
-      z[(size_t)r * l + cc] = v;
-      m = fmaxf(m, v);
+      for (int u = 0; u < Cfg::V; ++u)
+        if (cc + u < l) out[u] = v[u];
     }
-  }
+    // the row's threads are consecutive lanes of one warp (or whole warps)
+    constexpr int kLanes = Cfg::kThreadsX < 32 ? Cfg::kThreadsX : 32;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if (tx == 0) atomicMax(&row_max[r], __float_as_uint(m));
+    for (int o = kLanes / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (threadIdx.x % kLanes == 0 && r < n) atomicMax(&row_max[r], __float_as_uint(mx));
+  }
 }
 
+// one thread per 4 latent values of a row where L % 4 == 0, else per value
 __global__ void __launch_bounds__(256)
-compress_cols_quantise(const float* __restrict__ z, const unsigned* __restrict__ row_max,
-                       int8_t* __restrict__ q, float* __restrict__ s, int n, int l) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= n) return;
+compress_quantise(const float* __restrict__ z, const unsigned* __restrict__ row_max,
+                  int8_t* __restrict__ q, float* __restrict__ s, int n, int l, int per) {
+  const size_t e = (blockIdx.x * (size_t)blockDim.x + threadIdx.x) * per;
+  if (e >= (size_t)n * l) return;
+  const int row = static_cast<int>(e / l), col = static_cast<int>(e % l);
   const float sc = sei::row_scale(__uint_as_float(row_max[row]));
-  for (int j = lane; j < l; j += 32) q[(size_t)row * l + j] = sei::quantise(z[(size_t)row * l + j], sc);
-  if (lane == 0) s[row] = sc;
+  if (per == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(z + e);
+    *reinterpret_cast<char4*>(q + e) = make_char4(sei::quantise(v.x, sc), sei::quantise(v.y, sc),
+                                                  sei::quantise(v.z, sc), sei::quantise(v.w, sc));
+  } else {
+    q[e] = sei::quantise(z[e], sc);
+  }
+  if (col == 0) s[row] = sc;
+}
+
+template <class Cfg>
+int launch_compress(const float* f, const float* w, const float* b, float* z,
+                    unsigned* row_max, int8_t* q, float* s, int n, int c, int l,
+                    cudaStream_t st) {
+  constexpr size_t smem = Cfg::template smem_bytes<float>();
+  cudaError_t e = cudaFuncSetAttribute(compress_product<Cfg>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  compress_product<Cfg><<<sei::tile_grid<Cfg>(n, l), Cfg::kThreads, smem, st>>>(
+      f, w, b, z, row_max, n, c, l, sei::copy_bytes(f, c), sei::copy_bytes(w, l));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int per = l % 4 == 0 ? 4 : 1;
+  const size_t threads = ((size_t)n * l + per - 1) / per;
+  compress_quantise<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
+      z, row_max, q, s, n, l, per);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// 1 when the rows branch's latent tile (32 rows of L floats) fits in shared
-// memory, 0 when not; a negative value is a CUDA error.
-extern "C" int bottleneck_compress_rows_fits(int l) {
-  int dev = 0, smem_optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  return rows_smem_bytes(l) <= (size_t)smem_optin ? 1 : 0;
-}
-
-// 0 picks the rows branch, 1 the cols branch; a negative value is a CUDA error.
-// Rows wins when it fits and its 32-row tiles are at least as many as SMs.
-extern "C" int bottleneck_compress_pick(int n, int l) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  const int fits = bottleneck_compress_rows_fits(l);
-  if (fits < 0) return fits;
-  return (fits && (n + 31) / 32 >= sms) ? 0 : 1;
-}
-
-extern "C" int bottleneck_compress_rows(const float* f, const float* w, const float* b,
-                                        int8_t* q, float* s, int n, int c, int l,
-                                        void* stream) {
-  const size_t smem = rows_smem_bytes(l);
-  cudaError_t e = cudaFuncSetAttribute(compress_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  compress_rows<<<(n + 31) / 32, RowsTile::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      f, w, b, q, s, n, c, l);
-  return cudaGetLastError();
-}
-
-// z (N, L) f32 and row_max (N,) zeroed are scratch the caller allocates.
-extern "C" int bottleneck_compress_cols(const float* f, const float* w, const float* b,
-                                        float* z, unsigned* row_max, int8_t* q, float* s,
-                                        int n, int c, int l, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + 7) / 8, (l + 63) / 64);
-  compress_cols_product<<<grid, ColsTile::kThreads, 0, st>>>(f, w, b, z, row_max, n, c, l);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  compress_cols_quantise<<<(n + 7) / 8, 256, 0, st>>>(z, row_max, q, s, n, l);
-  return cudaGetLastError();
+// Tile `tile` of sgemm_tile.cuh.  z (N, L) f32 and row_max (N,) zeroed are
+// scratch the caller allocates.
+extern "C" int bottleneck_compress(int tile, const float* f, const float* w, const float* b,
+                                   float* z, unsigned* row_max, int8_t* q, float* s, int n,
+                                   int c, int l, void* stream) {
+  return sei::with_tile(tile, [&](auto cfg) {
+    return launch_compress<decltype(cfg)>(f, w, b, z, row_max, q, s, n, c, l,
+                                          static_cast<cudaStream_t>(stream));
+  });
 }

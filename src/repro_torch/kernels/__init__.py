@@ -11,7 +11,7 @@ _COUNTERS = {"bottleneck_compress": bottleneck_compress.launches,
 
 
 def launch_counts() -> dict:
-    """``{kernel: {branch: launches}}`` since the last :func:`reset_launches`."""
+    """``{kernel: {tile or route: launches}}`` since the last :func:`reset_launches`."""
     return {name: dict(counts) for name, counts in _COUNTERS.items()}
 
 

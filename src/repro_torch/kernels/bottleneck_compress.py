@@ -5,14 +5,12 @@ Replaces the TPU kernel ``bottleneck_compress``
 with the CUDA C++ kernel in ``csrc/bottleneck_compress.cu`` for ``sm_90a``.
 
 Bound on an H100: ``2*N*C*L`` float32 operations at 67 TFLOP/s against
-``4*(N*C + C*L + L + N) + N*L`` bytes at 3.35 TB/s.  Batch-8 VGG16 cuts with
-many rows are bound by operations, the N = 8 cuts (``flatten``,
-``fc0_relu``) by the bytes of ``w``.  The design keeps the per-row amax, which
-needs the whole latent row, in one of two branches (see the source): ``rows``
-keeps the latent in shared memory and needs as many 32-row tiles as SMs;
-``cols`` spreads (8, 64) tiles over the card for few rows and passes the
-latent through a scratch.  The kernel picks ``rows`` exactly when it fills
-the card and its latent fits in shared memory.
+``4*(N*C + C*L + L + N) + N*L`` bytes at 3.35 TB/s.  pool16, pool23 and the
+llama cut are bound by operations, relu3 and the N = 8 cuts (``flatten``,
+``fc0_relu``) by bytes.  One path: the product runs on the shared pipelined
+f32 tile (``kernels/tiles.py`` picks it by shape), its epilogue writes
+relu(z + b) to a scratch and each row's maximum by an exact ``atomicMax``,
+and a second pass quantises.
 """
 from __future__ import annotations
 
@@ -20,19 +18,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tiles
 from repro_torch.kernels.ref import bottleneck_compress_ref
 
-BRANCHES = ("rows", "cols")
-# launches of the CUDA kernel, by branch (a CPU call launches nothing)
-launches = {b: 0 for b in BRANCHES}
+# launches of the CUDA kernel, by tile (a CPU call launches nothing)
+launches = {t: 0 for t in tiles.TILES}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "bottleneck_compress_rows_fits": ([_I], _I),
-    "bottleneck_compress_pick": ([_I, _I], _I),
-    "bottleneck_compress_rows": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "bottleneck_compress_cols": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "bottleneck_compress": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
 }
 
 
@@ -52,36 +46,17 @@ def _check_inputs(f, w, b) -> None:
             raise ValueError(f"{name} is on {t.device}, f on {f.device}")
 
 
-def _query(fn: str, *args) -> int:
-    lib = _build.load("bottleneck_compress", _SIGNATURES)
-    code = getattr(lib, fn)(*args)
-    if code < 0:
-        _build.check(lib, code, fn)
-    return code
-
-
-def pick_branch(n: int, l: int) -> str:
-    """The branch the kernel takes for N rows and L latent channels on the
-    current card."""
-    return BRANCHES[_query("bottleneck_compress_pick", n, l)]
-
-
-def rows_fits(l: int) -> bool:
-    """Whether the rows branch's 32 latent rows of L floats fit in the
-    current card's shared memory."""
-    return bool(_query("bottleneck_compress_rows_fits", l))
-
-
 def bottleneck_compress(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                        branch: str | None = None) -> tuple:
+                        tile: str | None = None) -> tuple:
     """f: (N, C) f32; w: (C, L) f32; b: (L,) f32 -> (q int8 (N, L), s f32 (N, 1)).
 
     A CPU tensor goes to :func:`bottleneck_compress_ref`; a CUDA tensor
-    launches the kernel on the current stream, or raises.  ``branch``
-    forces ``"rows"`` or ``"cols"`` (for timing both); the default is the
-    kernel's own pick.
+    launches the kernel on the current stream, or raises.  ``tile`` forces
+    one of ``tiles.TILES`` (for timing and tests; every tile gives the same
+    bits); the default is ``tiles.pick_tile``'s.
     """
     _check_inputs(f, w, b)
+    tiles.check_name(tile)
     if f.device.type == "cpu":
         return bottleneck_compress_ref(f, w, b)
     if f.device.type != "cuda":
@@ -92,22 +67,15 @@ def bottleneck_compress(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     s = torch.empty((n, 1), dtype=torch.float32, device=f.device)
     if n == 0:
         return q, s
+    tile = tiles.resolve(tile, n, c, l, f.device)
     with torch.cuda.device(f.device):
         lib = _build.load("bottleneck_compress", _SIGNATURES)
-        branch = branch or pick_branch(n, l)
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        if branch == "rows":
-            code = lib.bottleneck_compress_rows(
-                f.data_ptr(), w.data_ptr(), b.data_ptr(), q.data_ptr(), s.data_ptr(),
-                n, c, l, stream)
-        elif branch == "cols":
-            z = torch.empty((n, l), dtype=torch.float32, device=f.device)
-            row_max = torch.zeros((n,), dtype=torch.int32, device=f.device)
-            code = lib.bottleneck_compress_cols(
-                f.data_ptr(), w.data_ptr(), b.data_ptr(), z.data_ptr(),
-                row_max.data_ptr(), q.data_ptr(), s.data_ptr(), n, c, l, stream)
-        else:
-            raise ValueError(f"unknown branch {branch!r}; use one of {BRANCHES}")
-        _build.check(lib, code, f"bottleneck_compress[{branch}]")
-    launches[branch] += 1
+        z = torch.empty((n, l), dtype=torch.float32, device=f.device)
+        row_max = torch.zeros((n,), dtype=torch.int32, device=f.device)
+        code = lib.bottleneck_compress(
+            list(tiles.TILES).index(tile), f.data_ptr(), w.data_ptr(), b.data_ptr(),
+            z.data_ptr(), row_max.data_ptr(), q.data_ptr(), s.data_ptr(), n, c, l,
+            torch.cuda.current_stream(f.device).cuda_stream)
+        _build.check(lib, code, f"bottleneck_compress[{tile}]")
+    launches[tile] += 1
     return q, s

@@ -6,12 +6,12 @@ Replaces the TPU kernel ``bottleneck_decompress``
 ``sm_90a``.
 
 Bound on an H100: ``2*N*L*C`` float32 operations at 67 TFLOP/s against
-``N*L + 4*(N + L*C + C + N*C)`` bytes at 3.35 TB/s: operations for the
-many-row cuts of a batch-8 VGG16, the bytes of ``w`` for the N = 8 cuts.
-The design is a tiled f32 product over (32, 64) output tiles that
-dequantises each q tile as it enters shared memory, so the f32 latent never
-reaches device memory, and whose grid covers the output so that small N
-still gives C / 64 blocks.
+``N*L + 4*(N + L*C + C + N*C)`` bytes at 3.35 TB/s: operations for pool16,
+pool23 and the llama cut, bytes for relu3 and the N = 8 cuts.  The design
+is the shared pipelined f32 tile (``kernels/tiles.py`` picks it by shape,
+with (N, L, C)) with the codes as its int8 operand, dequantised once per
+element as they leave shared memory, so the f32 latent never reaches
+device memory.
 """
 from __future__ import annotations
 
@@ -19,14 +19,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tiles
 from repro_torch.kernels.ref import bottleneck_decode_ref
 
-launches = {"tiled": 0}
+# launches of the CUDA kernel, by tile (a CPU call launches nothing)
+launches = {t: 0 for t in tiles.TILES}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "bottleneck_decompress": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "bottleneck_decompress": ([_I, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
 }
 
 
@@ -51,13 +52,16 @@ def _check_inputs(q, s, w, b) -> None:
 
 
 def bottleneck_decompress(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
-                          b: torch.Tensor) -> torch.Tensor:
+                          b: torch.Tensor, *, tile: str | None = None) -> torch.Tensor:
     """q: (N, L) int8; s: (N, 1) f32; w: (L, C) f32; b: (C,) f32 -> (N, C) f32.
 
     A CPU tensor goes to :func:`bottleneck_decode_ref`; a CUDA tensor
-    launches the kernel on the current stream, or raises.
+    launches the kernel on the current stream, or raises.  ``tile`` forces
+    one of ``tiles.TILES`` (for timing and tests; every tile gives the same
+    bits); the default is ``tiles.pick_tile``'s.
     """
     _check_inputs(q, s, w, b)
+    tiles.check_name(tile)
     if q.device.type == "cpu":
         return bottleneck_decode_ref(q, s, w, b)
     if q.device.type != "cuda":
@@ -67,11 +71,13 @@ def bottleneck_decompress(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
     out = torch.empty((n, c), dtype=torch.float32, device=q.device)
     if n == 0:
         return out
+    tile = tiles.resolve(tile, n, l, c, q.device)
     with torch.cuda.device(q.device):
         lib = _build.load("bottleneck_decompress", _SIGNATURES)
         code = lib.bottleneck_decompress(
-            q.data_ptr(), s.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            n, l, c, torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(lib, code, "bottleneck_decompress")
-    launches["tiled"] += 1
+            list(tiles.TILES).index(tile), q.data_ptr(), s.data_ptr(), w.data_ptr(),
+            b.data_ptr(), out.data_ptr(), n, l, c,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, code, f"bottleneck_decompress[{tile}]")
+    launches[tile] += 1
     return out

@@ -10,7 +10,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.core import bottleneck as B  # noqa: E402
-from repro_torch.kernels import launch_counts, ref, reset_launches  # noqa: E402
+from repro_torch.kernels import launch_counts, ref, reset_launches, tiles  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # noqa: E402
 from repro_torch.kernels.flash_attention import ROUTES, flash_attention  # noqa: E402
@@ -25,8 +25,11 @@ from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-# (N, C, L): whole tiles, ragged everywhere, one row, many rows
-SHAPES = [(64, 128, 64), (777, 300, 100), (1, 512, 256), (4237, 96, 48)]
+# (N, C, L): whole tiles, ragged everywhere, one row, many rows, N = 8 at
+# fc0_relu's width, and C and L not multiples of 4 (the 4-byte copies of f
+# and w, the byte copies of q)
+SHAPES = [(64, 128, 64), (777, 300, 100), (1, 512, 256), (4237, 96, 48), (8, 4096, 2048),
+          (33, 301, 99)]
 
 
 @pytest.fixture
@@ -44,37 +47,68 @@ def _inputs(n, c, l, dev):
     return f.to(dev), w.to(dev), b.to(dev)
 
 
+def _codes(n, c, l, dev):
+    g = torch.Generator().manual_seed(n)
+    q = torch.randint(-127, 128, (n, l), generator=g, dtype=torch.int8).to(dev)
+    s = (1e-3 + 0.1 * torch.rand((n, 1), generator=g)).to(dev)
+    w = (torch.randn((l, c), generator=g) / l ** 0.5).to(dev)
+    b = (0.1 * torch.randn((c,), generator=g)).to(dev)
+    return q, s, w, b
+
+
 @pytest.mark.parametrize("shape", SHAPES)
-def test_compress_branches_agree_and_match_plain(cuda, shape):
+@pytest.mark.parametrize("tile", list(tiles.TILES))
+def test_compress_tile_matches_plain_and_every_tile(cuda, shape, tile):
     f, w, b = _inputs(*shape, cuda)
     qr, sr = ref.bottleneck_compress_ref(f, w, b)
-    out = {br: comp.bottleneck_compress(f, w, b, branch=br) for br in comp.BRANCHES}
+    reset_launches()
+    q, s = comp.bottleneck_compress(f, w, b, tile=tile)
     torch.cuda.synchronize()
-    assert torch.equal(out["rows"][0], out["cols"][0])
-    assert torch.equal(out["rows"][1], out["cols"][1])
-    q, s = out["cols"]
+    assert launch_counts()["bottleneck_compress"] == {t: int(t == tile) for t in tiles.TILES}
     assert int((q.int() - qr.int()).abs().max()) <= 1
     assert float(((s - sr).abs() / sr).max()) <= 1e-5
+    for other in tiles.TILES:
+        qo, so = comp.bottleneck_compress(f, w, b, tile=other)
+        assert torch.equal(q, qo) and torch.equal(s, so), other
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-def test_decompress_matches_plain(cuda, shape):
-    n, c, l = shape
-    g = torch.Generator().manual_seed(n)
-    q = torch.randint(-127, 128, (n, l), generator=g, dtype=torch.int8).to(cuda)
-    s = (1e-3 + 0.1 * torch.rand((n, 1), generator=g)).to(cuda)
-    w = (torch.randn((l, c), generator=g) / l ** 0.5).to(cuda)
-    b = (0.1 * torch.randn((c,), generator=g)).to(cuda)
+@pytest.mark.parametrize("tile", list(tiles.TILES))
+def test_decompress_tile_matches_plain_and_every_tile(cuda, shape, tile):
+    q, s, w, b = _codes(*shape, cuda)
     want = ref.bottleneck_decode_ref(q, s, w, b)
-    got = bottleneck_decompress(q, s, w, b)
+    reset_launches()
+    got = bottleneck_decompress(q, s, w, b, tile=tile)
     torch.cuda.synchronize()
+    assert launch_counts()["bottleneck_decompress"] == {t: int(t == tile) for t in tiles.TILES}
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    for other in tiles.TILES:
+        assert torch.equal(got, bottleneck_decompress(q, s, w, b, tile=other)), other
+
+
+def test_codec_on_views_off_the_16_byte_boundary(cuda):
+    """Contiguous views whose rows start off a 16-byte boundary take the
+    4-byte (f, w) and byte (q) copies, and give the same bits."""
+    f, w, b = _inputs(40, 128, 64, cuda)
+    flat = torch.zeros(f.numel() + 1, device=cuda)
+    flat[1:] = f.reshape(-1)
+    fv = flat[1:].view(f.shape)
+    assert fv.is_contiguous() and fv.data_ptr() % 16 == 4
+    assert all(torch.equal(a, b_) for a, b_ in zip(comp.bottleneck_compress(fv, w, b),
+                                                   comp.bottleneck_compress(f, w, b)))
+    q, s, wd, bd = _codes(40, 128, 64, cuda)
+    flat8 = torch.zeros(q.numel() + 1, dtype=torch.int8, device=cuda)
+    flat8[1:] = q.reshape(-1)
+    qv = flat8[1:].view(q.shape)
+    assert torch.equal(bottleneck_decompress(qv, s, wd, bd), bottleneck_decompress(q, s, wd, bd))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     f, w, b = _inputs(8, 16, 4, cuda)
-    with pytest.raises(ValueError, match="unknown branch"):
-        comp.bottleneck_compress(f, w, b, branch="tiles")
+    with pytest.raises(ValueError, match="unknown tile"):
+        comp.bottleneck_compress(f, w, b, tile="rows")
+    with pytest.raises(ValueError, match="unknown tile"):
+        bottleneck_decompress(*_codes(8, 16, 4, cuda), tile="cols")
     with pytest.raises(ValueError, match="is on"):
         comp.bottleneck_compress(f, w.cpu(), b)
 
@@ -93,7 +127,7 @@ def test_split_runtime_on_the_card_matches_the_cpu_path(cuda):
     fused = SplitRuntime(model, params, (6, 9), ae=ae, fused=True, device=cuda).infer(x, iters=1)
     counts = launch_counts()
     assert sum(counts["bottleneck_compress"].values()) > 0
-    assert counts["bottleneck_decompress"]["tiled"] > 0
+    assert sum(counts["bottleneck_decompress"].values()) > 0
     np.testing.assert_array_equal(eager.logits, fused.logits)
     on_cpu = SplitRuntime(model, params_cpu, (6, 9), ae=ae_cpu, device="cpu").infer(x, iters=1)
     rel = np.abs(eager.logits - on_cpu.logits).max() / np.abs(on_cpu.logits).max()

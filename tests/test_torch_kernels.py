@@ -9,7 +9,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.bottleneck_compress import bottleneck_compress as pallas_compress  # noqa: E402
 from repro.kernels.bottleneck_decompress import bottleneck_decompress_any  # noqa: E402
-from repro_torch.kernels import launch_counts, ref  # noqa: E402
+from repro_torch.kernels import launch_counts, ref, tiles  # noqa: E402
 from repro_torch.kernels.bottleneck_compress import bottleneck_compress  # noqa: E402
 from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # noqa: E402
 
@@ -120,3 +120,89 @@ def test_wrappers_check_their_inputs():
         bottleneck_decompress(q.float(), s, torch.zeros(3, 8), torch.zeros(8))
     with pytest.raises(ValueError, match="shape mismatch"):
         bottleneck_decompress(q, torch.ones(3, 1), torch.zeros(3, 8), torch.zeros(8))
+
+
+# (N, K, M) of the codec products on the main path (full-width VGG16 at batch
+# 8: relu3, pool16, pool23, flatten, fc0_relu), the extra shapes of
+# chip_smoke.py (N = 1, ragged rows and columns, one two-image client at
+# pool23, the llama3.2-3b cut), each as compress (N, C, L) and decompress
+# (N, L, C) take it, and N 0, 1, 16 and 17 around the streaming tile's edge
+_COMPRESS = [(401408, 64, 32), (6272, 256, 128), (1568, 512, 256), (8, 25088, 12544),
+             (8, 4096, 2048), (1, 512, 256), (4237, 96, 48), (777, 300, 100),
+             (392, 512, 256), (8000, 3072, 1536)]
+PICK_SHAPES = (_COMPRESS + [(n, m, k) for n, k, m in _COMPRESS]
+               + [(0, 512, 256), (1, 4096, 2048), (16, 4096, 2048), (17, 4096, 2048)])
+
+
+@pytest.mark.parametrize("shape", PICK_SHAPES)
+def test_pick_names_a_tile_at_every_path_shape(shape):
+    n, k, m = shape
+    tile = tiles.pick_tile(n, k, m, 132)
+    assert tile in tiles.TILES
+    if n <= tiles.STREAM_ROWS:
+        assert tile == "stream"
+    # no tile is picked whose grid leaves more than half the card idle,
+    # unless the 8-row tile's grid does as well
+    if tiles.blocks(tile, n, m) < 66:
+        assert tiles.blocks("stream", n, m) < 66
+
+
+@pytest.mark.parametrize("shape, tile", [
+    ((8000, 3072, 1536), "wide"), ((8000, 1536, 3072), "wide"),      # the llama cut
+    ((401408, 32, 64), "wide"),                                       # relu3 decompress
+    ((401408, 64, 32), "narrow"), ((6272, 256, 128), "mid"),          # relu3, pool16
+    ((6272, 128, 256), "mid"), ((1568, 512, 256), "mid"), ((1568, 256, 512), "mid"),
+    ((4237, 48, 96), "narrow"), ((777, 100, 300), "narrow"),          # ragged widths
+    ((777, 300, 100), "stream"),                                      # 52 narrow blocks
+    ((392, 512, 256), "stream"), ((392, 256, 512), "mid"),            # a pool23 client
+    ((8, 25088, 12544), "stream"), ((8, 4096, 2048), "stream"), ((1, 512, 256), "stream")])
+def test_pick_at_the_measured_shapes(shape, tile):
+    """The pick at the shapes whose tiles were timed on an H100 (132 SMs)."""
+    assert tiles.pick_tile(*shape, 132) == tile
+    assert tiles.blocks("wide", 8000, 1536) == 125 * 24
+
+
+def test_pick_streams_up_to_16_rows_and_fills_the_card_after():
+    # at 16 rows the 8-row tile even where a 64-column tile would fill the
+    # card; at 17 that tile, and the 8-row tile again where it would not
+    assert tiles.pick_tile(16, 4096, 16384, 132) == "stream"
+    assert tiles.pick_tile(17, 4096, 16384, 132) == "mid"
+    assert tiles.blocks("mid", 17, 2048) == 32
+    assert tiles.pick_tile(17, 4096, 2048, 132) == "stream"
+
+
+def test_tile_table_matches_the_cuda_header():
+    """``kernels/tiles.py`` and ``csrc/sgemm_tile.cuh`` list the same tiles
+    in the same order (the launchers take the index), with the same block
+    rows and columns (the pick's grid counts)."""
+    from pathlib import Path
+    import re
+    src = (Path(tiles.__file__).resolve().parents[1] / "csrc" / "sgemm_tile.cuh").read_text()
+    header = dict(re.findall(r"using (\w+) = Tile<([\d, ]+)>;", src))
+    order = re.findall(r"case \d+: return f\((\w+)\{\}\);", src)
+    assert [n.lower() for n in order] == list(tiles.TILES)
+    for name, (bm, bn) in tiles.TILES.items():
+        assert tuple(int(x) for x in header[name.capitalize()].split(","))[:2] == (bm, bn)
+
+
+@pytest.mark.parametrize("tile", ["rows", "cols", "tiled", "Wide"])
+def test_unknown_tile_raises_on_cpu_tensors(tile):
+    f, w, b = torch.zeros(4, 8), torch.zeros(8, 3), torch.zeros(3)
+    with pytest.raises(ValueError, match="unknown tile"):
+        bottleneck_compress(f, w, b, tile=tile)
+    q, s = torch.zeros(4, 3, dtype=torch.int8), torch.ones(4, 1)
+    with pytest.raises(ValueError, match="unknown tile"):
+        bottleneck_decompress(q, s, torch.zeros(3, 8), torch.zeros(8), tile=tile)
+
+
+@pytest.mark.parametrize("tile", list(tiles.TILES))
+def test_a_forced_tile_on_cpu_tensors_takes_the_plain_version(tile):
+    before = launch_counts()
+    f, w, b = (torch.tensor(a) for a in _compress_inputs(64, 96, 48, exact=False))
+    q, s = bottleneck_compress(f, w, b, tile=tile)
+    qr, sr = ref.bottleneck_compress_ref(f, w, b)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    wd = torch.randn(48, 96)
+    out = bottleneck_decompress(q, s, wd, torch.zeros(96), tile=tile)
+    assert torch.equal(out, ref.bottleneck_decode_ref(q, s, wd, torch.zeros(96)))
+    assert launch_counts() == before
