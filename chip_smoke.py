@@ -40,7 +40,8 @@ no install: it puts ``src/`` on the path itself).  Phases:
 10. (Z6) for each model, a full-width depth-2 f32 copy through the kernels
     on the card against the plain versions on the CPU, same weights;
 11. (Z7) hold ``mamba_scan`` against its plain version at the jamba-v0.1-52b
-    prefill (zero state), a ragged S from a given state and a decode step;
+    prefill (zero state), a ragged S from a given state, a decode step and
+    the prefill again with the served model's own A;
 12. (Z8) serve jamba-v0.1-52b with its dense FFN (``moe=None``; the MoE
     layers wait for ROADMAP A13b) at full width and full depth in bf16
     through ``ServingEngine``, Z4's prompts, 16 new tokens each, each step's
@@ -94,6 +95,10 @@ from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+# exponentials on the special-function units (MUFU.EX2): 16 a clock on each
+# of the 132 SMs at 1.98 GHz, the clock F32_FLOPS assumes (132 * 128 * 2 *
+# 1.98e9); the f32 FMA lanes do 8 times as many operations a clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 BATCH = 8
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
 VGG_CUTS = {"relu3": 3, "pool16": 16, "pool23": 23, "flatten": 31, "fc0_relu": 33}
@@ -135,11 +140,18 @@ FLASH_BAR = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RWKV_SHAPES = [("rwkv_prefill", 4, 1000, 32, 64, False), ("rwkv_decode", 4, 1, 32, 64, True),
                ("ragged333", 4, 333, 32, 64, True)]
 # mamba_scan at the jamba-v0.1-52b prefill and decode (d_inner 8192, d_state
-# 16): (label, B, S, di, ds, nonzero initial state)
-MAMBA_SHAPES = [("jamba_prefill", 4, 2000, 8192, 16, False), ("ragged333", 4, 333, 8192, 16, True),
-                ("jamba_decode", 4, 1, 8192, 16, True)]
+# 16): (label, B, S, di, ds, nonzero initial state, A as the model's init
+# makes it).  The other rows take A = -exp(0.3 N(0, 1)) and dt = 0.1
+# softplus(N(0, 1)); "served_a" takes the served model's own A, -(1 .. 16) in
+# every channel (models/mamba.py), and dt = softplus(N(0, 1)), where |dt A|
+# reaches 10-20 and the kernel's ex2.approx departs most from torch.exp.
+MAMBA_SHAPES = [("jamba_prefill", 4, 2000, 8192, 16, False, False),
+                ("ragged333", 4, 333, 8192, 16, True, False),
+                ("jamba_decode", 4, 1, 8192, 16, True, False),
+                ("served_a", 4, 2000, 8192, 16, False, True)]
 # its bar, relative to max |plain| of y and of the final state: f32 in
-# another order (fused multiply-adds, the kernel's own sum over d_state)
+# another order (fused multiply-adds, the kernel's own sum over d_state in
+# two lanes' partials) and exp as ex2.approx of a pre-scaled argument
 MAMBA_RTOL = 1e-5
 # jamba-v0.1-52b as served (configs.SERVED: every FFN the dense SwiGLU, its
 # MoE layers wait for ROADMAP A13b); Z4's prompts
@@ -170,9 +182,13 @@ ZOO_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
 ULP_FACTOR = 2.0
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS, exps: float = 0) -> tuple:
+    """The least time of the work in ms and what sets it: the bytes at the
+    HBM rate, the operations at ``peak`` or the exponentials on the SFUs."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / peak,
+             "sfu": exps / SFU_EXP_PER_S}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 def check_ptxas(name, log) -> None:
@@ -534,13 +550,17 @@ def check_rwkv(label, b, s, h, d, nonzero, gen) -> dict:
     return e
 
 
-def check_mamba(label, b, s, di, ds, nonzero, gen) -> dict:
+def check_mamba(label, b, s, di, ds, nonzero, served_a, gen) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    dt = 0.1 * F.softplus(randn(b, s, di))
+    dt = (1.0 if served_a else 0.1) * F.softplus(randn(b, s, di))
     bm, cm = (0.5 * randn(b, s, ds) for _ in range(2))
     x = randn(b, s, di)
-    a = -torch.exp(0.3 * randn(di, ds))
+    if served_a:
+        a = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda").expand(di, ds)
+        a = a.contiguous()
+    else:
+        a = -torch.exp(0.3 * randn(di, ds))
     st = 0.3 * randn(b, di, ds) if nonzero else torch.zeros((b, di, ds), device="cuda")
     want_y, want_st = ref.mamba_scan_ref(dt, bm, cm, x, a, st)
     y, final = MS.mamba_scan(dt, bm, cm, x, a, st)
@@ -554,18 +574,20 @@ def check_mamba(label, b, s, di, ds, nonzero, gen) -> dict:
                              f"state err {err_st} of {top_st} (bar {MAMBA_RTOL})")
     run = lambda: MS.mamba_scan(dt, bm, cm, x, a, st)  # noqa: E731
     e = {"shape": label, "B": b, "S": s, "di": di, "ds": ds, "initial_state": nonzero,
-         "max_abs_err": max(err_y, err_st), "y_rel_err": err_y / top_y,
+         "served_a": served_a, "max_abs_err": max(err_y, err_st), "y_rel_err": err_y / top_y,
          "state_rel_err": err_st / top_st,
          "ms": device_ms(run), "call_ms": call_ms(run),
          "plain_ms": device_ms(lambda: ref.mamba_scan_ref(dt, bm, cm, x, a, st),
                                reps=1, replays=2),
          "library_ms": None}
     e["ms_per_step"] = e["ms"] / s
-    # dt, x read and y written; B, C, A and both states; 7 operations a
-    # state entry and step (dt*A, its exp, two products, two sums, h*C)
+    # dt, x read and y written; B, C, A and both states; 6 f32 operations a
+    # state entry and step (dt*A, dx*B, dA*h and its sum, h*C and its sum)
+    # and dt*x a channel and step; one exponential a state entry and step
     e["bound_ms"], e["bound_by"] = bound_ms(4 * (3 * b * s * di + 2 * b * s * ds + di * ds
                                                  + 2 * b * di * ds),
-                                            7 * b * s * di * ds + b * s * di)
+                                            6 * b * s * di * ds + b * s * di,
+                                            exps=b * s * di * ds)
     return e
 
 
@@ -912,7 +934,7 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "warpgroup",
                                        "wgmma")):
                 print(f"  {name}: {line.strip()}")
-        if name.startswith("bottleneck_"):
+        if name.startswith("bottleneck_") or name == "mamba_scan":
             check_ptxas(name, log)
 
     # phase 3

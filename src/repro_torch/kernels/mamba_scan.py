@@ -4,13 +4,14 @@ Replaces the TPU kernel ``mamba_scan`` (``repro/kernels/mamba_scan.py:55``,
 ``pl.pallas_call`` at ``:73``) with the CUDA C++ kernel in
 ``csrc/mamba_scan.cu`` for ``sm_90a``.
 
-Bound on an H100: the bytes of dt, x and y (f32) plus B, C, A and the two
-states at 3.35 TB/s; the recurrence is a chain of S dependent steps, so
-the time per step matters too.  One thread per (batch, channel) walks all
-S steps with its d_state floats of state in registers; a block stages a run
-of steps' B_t and C_t, shared by all its channels, in shared memory.  Unlike
-the TPU kernel it starts from a given state (zero reproduces the TPU kernel)
-and takes any S >= 1, so a decode step (S = 1) goes through it too.
+Bound on an H100: the B*S*di*d_state exponentials on the special-function
+units; the bytes of dt, x and y (f32) at 3.35 TB/s take about as long.  Two
+lanes per (batch, channel) walk all S steps, each with half of the d_state
+floats of state in registers, dA = 2^(dt * A log2 e) by one ``ex2.approx``
+an entry; dt, x, B_t and C_t arrive by ``cp.async`` in a ring of chunks that
+overlaps the steps.  Unlike the TPU kernel it starts from a given state
+(zero reproduces the TPU kernel) and takes any S >= 1, so a decode step
+(S = 1) goes through it too.
 """
 from __future__ import annotations
 

@@ -212,16 +212,26 @@ def test_rwkv6_scan_matches_plain(cuda, shape):
     assert float((final - want_st).abs().max()) <= 1e-4 * float(want_st.abs().max())
 
 
-# b, s, di: one step, ragged S and di (not a whole block of channels); the
-# kernel takes jamba's d_state, 16
-@pytest.mark.parametrize("shape", [(2, 1, 256), (1, 37, 300), (2, 300, 512), (3, 70, 8192)])
+# b, s, di, served A: one step, ragged S and di (not a whole block of
+# channels); S 35 ends on a partial stage of the kernel's ring (two stages
+# of 16 steps and 3); S 1 at a di that is no multiple of 4 (the kernel's
+# 4-byte copies); the served model's own A, -(1 .. 16) in every channel
+# (models/mamba.py), with dt = softplus(N(0, 1)), where |dt A| reaches
+# 10-20.  The kernel takes jamba's d_state, 16.
+@pytest.mark.parametrize("shape", [(2, 1, 256, False), (1, 37, 300, False), (2, 300, 512, False),
+                                   (3, 70, 8192, False), (2, 35, 512, False),
+                                   (3, 1, 333, False), (2, 300, 1000, True)])
 def test_mamba_scan_matches_plain(cuda, shape):
-    b, s, di = shape
+    b, s, di, served_a = shape
     g = torch.Generator().manual_seed(s + di)
-    dt = 0.1 * torch.nn.functional.softplus(torch.randn((b, s, di), generator=g))
+    dt = (1.0 if served_a else 0.1) * torch.nn.functional.softplus(
+        torch.randn((b, s, di), generator=g))
     bm, cm = (0.5 * torch.randn((b, s, 16), generator=g) for _ in range(2))
     x = torch.randn((b, s, di), generator=g)
-    a = -torch.exp(0.3 * torch.randn((di, 16), generator=g))
+    if served_a:
+        a = -torch.arange(1, 17, dtype=torch.float32).expand(di, 16).contiguous()
+    else:
+        a = -torch.exp(0.3 * torch.randn((di, 16), generator=g))
     st = 0.3 * torch.randn((b, di, 16), generator=g)
     args = [t.to(cuda) for t in (dt, bm, cm, x, a, st)]
     want_y, want_st = ref.mamba_scan_ref(*args)

@@ -3,6 +3,7 @@ against the JAX package: the Pallas kernel in interpret mode, its ``ref``
 oracle and ``repro.models.mamba`` on reduced jamba-v0.1-52b with its dense
 FFN (``moe=None``)."""
 import dataclasses
+import math
 
 import pytest
 
@@ -56,6 +57,71 @@ def test_plain_scan_matches_pallas_kernel_and_ref_from_zero(case):
     np.testing.assert_allclose(y.numpy(), np.asarray(pallas_scan(*j, chunk=chunk, bd=bd,
                                                                  interpret=True)), atol=TOL)
     np.testing.assert_allclose(y.numpy(), np.asarray(jref.mamba_scan_ref(*j)), atol=TOL)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to f32, as ``fmaf`` rounds it (through f64,
+    where the product of two f32 values is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _scan_kernel_numerics(dt, bm, cm, x, a, state, lanes=2):
+    """The arithmetic of ``csrc/mamba_scan.cu``, written out in PyTorch (CPU):
+    A scaled by log2 e once; dA = exp2(dt * A'), each product rounded to f32;
+    h = fma(dA, h, (dt * x) * B); y as each lane's partial over its
+    d_state / lanes entries (a product, then fmas in ascending entry), the
+    partials added pairwise as the lanes' xor-shuffles add them.  exp2 here
+    is torch's f32 exp2; the kernel's ex2.approx is within 2 ulp of 2^x,
+    which this cannot model, so the 1e-5 bar has to hold that too."""
+    a2 = a * torch.tensor(math.log2(math.e), dtype=torch.float32)
+    b, _, di = dt.shape
+    e = a.shape[1] // lanes
+    h, ys = state.clone(), []
+    for t in range(dt.shape[1]):
+        da = torch.exp2(dt[:, t, :, None] * a2)
+        h = _fma(da, h, (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :])
+        hl = h.view(b, di, lanes, e)
+        cl = cm[:, t].reshape(b, 1, lanes, e).expand(b, di, lanes, e)
+        p = hl[..., 0] * cl[..., 0]
+        for i in range(1, e):
+            p = _fma(hl[..., i], cl[..., i], p)
+        while p.shape[-1] > 1:          # xor 1, then xor 2, ...
+            p = p[..., 0::2] + p[..., 1::2]
+        ys.append(p[..., 0])
+    return torch.stack(ys, dim=1), h
+
+
+def _kernel_inputs(served_a, b=2, s=32, di=1024, ds=16, seed=5):
+    """Z7's inputs, or the served model's own A, -(1 .. 16) in every channel
+    (``models/mamba.py``), with dt = softplus(N(0, 1)) unscaled."""
+    dt, bm, cm, x, a, st = _inputs(b, s, di, ds, seed, state=True)
+    if served_a:
+        z = np.random.default_rng(seed + 1).standard_normal((b, s, di))
+        dt = np.log1p(np.exp(z)).astype(np.float32)
+        a = -np.broadcast_to(np.arange(1, ds + 1, dtype=np.float32), (di, ds)).copy()
+    return dt, bm, cm, x, a, st
+
+
+# di 1024 is two of the Pallas kernel's 512-channel blocks, S 32 two of its
+# 16-step chunks
+@pytest.mark.parametrize("served_a", [False, True])
+def test_kernel_numerics_match_pallas_kernel_and_plain_scan(served_a):
+    """The CUDA kernel's roundings against the Pallas kernel (interpret
+    mode, from zero) and the plain scan (from a given state) at 1e-5 of
+    max, the bar chip_smoke.py and the card tests hold the kernel to."""
+    arrays = _kernel_inputs(served_a)
+    dt, bm, cm, x, a, st = (torch.from_numpy(v) for v in arrays)
+    if served_a:      # the regime where ex2 of the pre-scaled argument departs most
+        assert float((dt[..., None] * a.abs().max()).max()) > 10
+    zero = torch.zeros_like(st)
+    got, _ = _scan_kernel_numerics(dt, bm, cm, x, a, zero)
+    want = np.asarray(pallas_scan(*(jnp.asarray(v) for v in arrays[:5]), chunk=16, bd=512,
+                                  interpret=True))
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    got_y, got_st = _scan_kernel_numerics(dt, bm, cm, x, a, st)
+    want_y, want_st = ref.mamba_scan_ref(dt, bm, cm, x, a, st)
+    assert float((got_y - want_y).abs().max()) <= 1e-5 * float(want_y.abs().max())
+    assert float((got_st - want_st).abs().max()) <= 1e-5 * float(want_st.abs().max())
 
 
 def test_final_state_is_the_reference_mixers_state():
