@@ -4,13 +4,22 @@ Replaces the TPU kernel ``rwkv6_scan`` (``repro/kernels/rwkv6_scan.py:56``,
 ``pl.pallas_call`` at ``:69``) with the CUDA C++ kernel in
 ``csrc/rwkv6_scan.cu`` for ``sm_90a``.
 
-Bound on an H100: the bytes of r, k, v, w and out (f32) plus the two states
-at 3.35 TB/s; but the recurrence is a chain of S dependent steps, so the
-time per step matters as much.  One block per (batch, head) walks all S
-steps with the D x D state in registers (one column per thread), staging
-the inputs of a run of steps in shared memory.  Unlike the TPU kernel it
-starts from a given state (zero reproduces the TPU kernel) and takes any
-S >= 1, so a decode step (S = 1) goes through it too.
+Bound on an H100: the bytes of r, k, v, w and out (f32) plus the two
+states at 3.35 TB/s; 5 f32 operations a state entry and step at the FMA
+pipes' rate take a little less.  What holds the kernel is what shared memory
+hands each thread a step: r_i, k_i and w_i of every row it holds.  One block
+of 128 threads per (batch, head) walks all S steps with the D x D state in
+registers: 4 lanes share 2 columns, 16 rows each, so each value read serves
+2 entries, and the lanes' sums of 4 steps are added by 6 shuffles after the
+4th.  The bonus u k v enters as one scalar a step, a_t = sum_i r_i u_i k_i,
+so an entry costs 3 FP instructions a step.  r, k, v and w arrive by
+``cp.async`` in a ring of 16-step chunks that overlaps the steps.  The sums
+run in another order than :func:`rwkv6_scan_ref`'s (each lane's rows, then
+the lanes' partials pairwise, then ``fma(v_j, a_t, .)``), within 1e-4 of max
+|out|.  Unlike the TPU kernel it starts from a given state (zero reproduces
+the TPU kernel) and takes any S >= 1, so a decode step (S = 1) goes through
+it too.  The kernel copies 16 bytes at a time: r, k, v, w and u must start
+on a 16-byte boundary, as every tensor the allocator makes does.
 """
 from __future__ import annotations
 
@@ -71,6 +80,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     b, s, h, d = r.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for the kernel's "
+                             f"16-byte copies; it starts at {t.data_ptr():#x}")
     out = torch.empty_like(r)
     final = torch.empty_like(state)
     if b * h == 0:

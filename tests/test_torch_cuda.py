@@ -195,21 +195,46 @@ def test_flash_attention_refuses_a_misaligned_bf16_view(cuda):
         flash_attention(q, k, k.clone())
 
 
-# b, s, h, d: one step, ragged S; the kernel takes rwkv6-1.6b's head dim, 64
-@pytest.mark.parametrize("shape", [(2, 1, 3, 64), (1, 37, 2, 64), (2, 300, 4, 64), (1, 5, 2, 64)])
+# b, s, h, d, served decays: one step, ragged S; S 53, three of the kernel's
+# 16-step ring stages and a tail of 5; S 64, four whole stages; the served
+# model's decays, w = exp(-exp(-4 + 0.5 N(0, 1))) near 0.98 with u = 0.1
+# N(0, 1) (models/rwkv.py), where the state sums some 50 steps.  A block
+# holds a whole head, so no H leaves a partial group of columns.  The kernel
+# takes rwkv6-1.6b's head dim, 64.
+@pytest.mark.parametrize("shape", [(2, 1, 3, 64, False), (1, 37, 2, 64, False),
+                                   (2, 300, 4, 64, False), (1, 5, 2, 64, False),
+                                   (2, 53, 3, 64, False), (1, 64, 5, 64, False),
+                                   (2, 300, 4, 64, True)])
 def test_rwkv6_scan_matches_plain(cuda, shape):
-    b, s, h, d = shape
+    b, s, h, d, served_w = shape
     g = torch.Generator().manual_seed(s + d)
     r, k, v = (0.5 * torch.randn((b, s, h, d), generator=g) for _ in range(3))
-    w = torch.sigmoid(torch.randn((b, s, h, d), generator=g))
-    u = 0.3 * torch.randn((h, d), generator=g)
+    if served_w:
+        w = torch.exp(-torch.exp(-4.0 + 0.5 * torch.randn((b, s, h, d), generator=g)))
+        u = 0.1 * torch.randn((h, d), generator=g)
+    else:
+        w = torch.sigmoid(torch.randn((b, s, h, d), generator=g))
+        u = 0.3 * torch.randn((h, d), generator=g)
     st = 0.2 * torch.randn((b, h, d, d), generator=g)
     args = [a.to(cuda) for a in (r, k, v, w, u, st)]
     want_out, want_st = ref.rwkv6_scan_ref(*args)
+    reset_launches()
     out, final = rwkv6_scan(*args)
     torch.cuda.synchronize()
+    assert launch_counts()["rwkv6_scan"]["chain"] == 1
+    # as chip_smoke.py holds it: f32 in another summation order
     assert float((out - want_out).abs().max()) <= 1e-4 * float(want_out.abs().max())
     assert float((final - want_st).abs().max()) <= 1e-4 * float(want_st.abs().max())
+
+
+def test_rwkv6_scan_refuses_a_view_off_the_16_byte_boundary(cuda):
+    r = torch.zeros((1, 4, 2, 64), device=cuda)
+    flat = torch.zeros(r.numel() + 1, device=cuda)
+    k = flat[1:].view(r.shape)                 # contiguous, 4 bytes off the boundary
+    assert k.is_contiguous() and k.data_ptr() % 16 == 4
+    u, st = torch.zeros((2, 64), device=cuda), torch.zeros((1, 2, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        rwkv6_scan(r, k, r, r, u, st)
 
 
 # b, s, di, served A: one step, ragged S and di (not a whole block of
