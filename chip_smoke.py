@@ -48,14 +48,28 @@ no install: it puts ``src/`` on the path itself).  Phases:
     through ``ServingEngine``, Z4's prompts, 16 new tokens each, each step's
     logits held against one full forward under Z4's rule; (Z9) the same in
     f32; (Z10) Z6's check for a one-period (8-layer) f32 copy of it;
-13. print the kernels' launch counts with their errors, times and bounds as
+13. (Z11) the paper's split-point search on phase 4's VGG16 (the same
+    seed): Table I/II from ``core.stats``, held equal to the reference's
+    (``VGG16_TOTALS_16``); the Grad-CAM CS curve over the 18 feature ops on
+    16 toy images (``data.synthetic``), timed, run 6 times and held to the
+    CPU's curve at 2 images; the candidates ``Study.candidates`` would rank;
+14. (Z12) ``train_bottleneck`` (Eq. 3) at the top SC candidate and at
+    pool23, 50 steps at batch 8, the loss falling and the first 3 steps
+    replayed on the CPU at 2 images; ``finetune`` (Eq. 4) at pool23, 3
+    steps, held to ``finetune`` on the CPU from the same start, and its
+    first 2 steps' gradients at 2 images to the CPU's; then a
+    ``SplitRuntime`` at each trained cut with its AE and the int8 wire,
+    through both codec kernels, held to the plain chain;
+15. print the kernels' launch counts with their errors, times and bounds as
     one JSON line, then ``{"ok": true, "device": ...}``.
 
-Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10) runs with the launch counts set
-to 0 just before it and read just after; a served run's prefill and decode
-are counted apart as well, and ``flash_attention``'s launches by route
-(``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32 one).  Any failed check raises, so the
-script exits non-zero and prints no result.  It exits non-zero as well
+Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z11, Z12's training and its
+deploy) runs with the launch counts set to 0 just before it and read just
+after; a served run's prefill and decode are counted apart as well, and
+``flash_attention``'s launches by route (``wgmma_bf16`` for a bf16 model,
+``simt_f32`` for an f32 one).  Z11 and Z12's training launch no kernel (a
+wrapper refuses an input that requires grad).  Any failed check raises, so
+the script exits non-zero and prints no result.  It exits non-zero as well
 where CUDA is not available.
 """
 from __future__ import annotations
@@ -75,8 +89,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.api.types import legal_split_candidates  # noqa: E402
 from repro_torch.configs import SERVED, get_config  # noqa: E402
 from repro_torch.core import bottleneck as B  # noqa: E402
+from repro_torch.core import stats  # noqa: E402
+from repro_torch.core.qos import rank_candidates  # noqa: E402
+from repro_torch.core.saliency import candidate_split_points, cumulative_saliency  # noqa: E402
 from repro_torch.core.bottleneck import latent_channels  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ref, reset_launches, tiles  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
@@ -86,7 +104,10 @@ from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as RS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layered import transformer_as_layered  # noqa: E402
-from repro_torch.models.vgg import vgg16  # noqa: E402
+from repro_torch.data.synthetic import toy_image_iter, toy_images  # noqa: E402
+from repro_torch.models.vgg import feature_index, vgg16  # noqa: E402
+from repro_torch.training.optimizer import adam_init, adam_update  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.runtime import wire as W  # noqa: E402
 from repro_torch.runtime.engine import SplitRuntime, run_clients  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -188,6 +209,46 @@ LOGIT_RTOL = 1e-2
 # the CPU (f32, depths 2 and 6) and 0.24-0.89x on an H100 (full depth).
 ZOO_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
 ULP_FACTOR = 2.0
+# Z11: VGG16's Table II at batch 16 as the reference computes it
+# (``repro.core.stats.totals(vgg16(), params, 16)``, params from
+# ``jax.eval_shape``; tests/test_torch_stats.py holds these to it), which the
+# port's ``stats.totals`` must equal: this machine has no JAX
+VGG16_TOTALS_16 = {"total_params": 138357544, "trainable_params": 138357544,
+                   "mult_adds_G": 247.52422912, "fwd_bwd_MB": 1749.74853515625,
+                   "input_MB": 9.1875, "params_MB": 527.7921447753906,
+                   "total_MB": 2286.7281799316406}
+# Z11 / Z12: the split-point search and the bottleneck training of the
+# paper's main path (paper §III, Eqs. 1-4), on phase 4's full-width VGG16,
+# as Study.candidates and Study.bottlenecks run them
+# (repro/api/study.py:294-370); the data is the port's copy of
+# data/synthetic.py at seed 0, toy images at 224 x 224
+SEARCH_IMAGES = 16
+TOP_N = 3                     # Study.candidates' default
+# the card's CS curve against the CPU's on the same weights and the first
+# REPLAY_BATCH images, on the normalised curve: both f32 in other orders
+# (cuDNN and oneDNN convolutions, their backward passes), some 1e-6 apart
+CS_ATOL = 1e-4
+AE_STEPS, AE_BATCH, AE_LR, AE_RATE, AE_SEED = 50, 8, 5e-4, 0.5, 0
+FINETUNE_STEPS, FINETUNE_CUT = 3, 23
+# each loss of the first steps on the card against the same steps on the
+# CPU from the same start, relative
+REPLAY_BATCH, AE_REPLAY_STEPS, FINETUNE_REPLAY_STEPS = 2, 3, 2
+TRAIN_RTOL = 1e-4
+# finetune's backward on the card: at each replayed step, from the card's own
+# state, the card's gradient against the CPU's gradient of the same state and
+# batch, leaf by leaf over the leaf's max |g|.  Sound f32 gradients part by up
+# to 4.4e-3 there (PR 25: the CPU's own distance from a float64 gradient); a
+# leaf the card gets wrong or leaves at zero reads about 1
+GRAD_RTOL = 2e-2
+# the timed finetune against ``finetune`` on the CPU from the same start and
+# batches, both run free: each loss, and the loss of each one's final state
+# on a batch neither saw, relative.  Adam's first steps move a weight by about
+# +-lr wherever |g| >> eps, so a weight whose gradient is rounding-sized
+# steps either way and the runs part: PR 25 saw 4.1e-4 at the second loss
+# (batch 2, runs 1-6), 1.0e-4 and 4.8e-5 at the second and third (batch 8,
+# run 7).  A state left unchanged reads about 0.5 at the second loss
+FREE_RTOL = 1e-2
+DEPLOY_DATA_SEED = 10_000     # a batch no training step saw
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS, exps: float = 0) -> tuple:
@@ -383,16 +444,16 @@ def frames_fused(part, x) -> tuple:
     return frames, out
 
 
-def plain_chain(model, params, aes, x) -> torch.Tensor:
-    """The served ae8 chain with the plain versions in place of the kernels."""
-    bounds = (0,) + tuple(c + 1 for c in SERVED_CUTS) + (len(model.layers),)
+def plain_chain(model, params, aes, x, cuts=SERVED_CUTS) -> torch.Tensor:
+    """The ae8 chain at ``cuts`` with the plain versions in place of the kernels."""
+    bounds = (0,) + tuple(c + 1 for c in cuts) + (len(model.layers),)
     cur = x
     with torch.inference_mode():
         for k, (a, b) in enumerate(zip(bounds, bounds[1:])):
             cur = model.apply_range(params, cur, a, b)
-            if k == len(SERVED_CUTS):
+            if k == len(cuts):
                 return cur
-            ae = aes[SERVED_CUTS[k]]
+            ae = aes[cuts[k]]
             shape = cur.shape
             q, s = ref.bottleneck_compress_ref(cur.reshape(-1, shape[-1]), ae["enc"]["w"],
                                                ae["enc"]["b"])
@@ -456,6 +517,209 @@ def serve(model, params, x) -> dict:
     out["clients"] = {"n_clients": 4, "n_slots": 4, "n_batches": server.n_batches,
                       "n_served": server.n_served, "wall_ms": wall_ms,
                       "logit_rel_err_vs_one_client": rel}
+    return out
+
+
+def card_runs(fn, n=5) -> tuple:
+    """``fn`` once to warm up, then ``n`` times, each timed by CUDA events
+    (up to its own synchronisation); returns (ms each, results)."""
+    fn()
+    times, results = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        results.append(fn())
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, results
+
+
+def to_cpu(tree):
+    return tree_map(torch.Tensor.cpu, tree)
+
+
+def search(model, params, params_cpu) -> dict:
+    """Z11: Table I/II, the CS curve over the 18 feature ops and the
+    candidates ranked from it, as ``Study.candidates`` does
+    (repro/api/study.py:323-341): the curve's legal maxima, else the legal
+    cuts with the highest CS.  No kernel of the port is on this path."""
+    rows = stats.summary(model, params, SEARCH_IMAGES)
+    table = stats.totals(model, params, SEARCH_IMAGES)
+    print(stats.format_table(rows), flush=True)
+    print("Table II", json.dumps(table), flush=True)
+    if table != VGG16_TOTALS_16:
+        raise AssertionError(f"Table II {table} differs from the reference's {VGG16_TOTALS_16}")
+    xs, ys = toy_images(SEARCH_IMAGES, hw=224, seed=0)
+    x, y = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    idx = feature_index(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, curves = card_runs(lambda: cumulative_saliency(model, params, x, y, layer_idx=idx))
+    check_launches("Z11 search", launch_counts(), {})
+    out = {"images": SEARCH_IMAGES, "layer_idx": idx, "cs_ms": float(np.median(times)),
+           "cs_ms_runs": times, "cs_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launch_counts()}
+    cs = curves[0]
+    if cs.shape != (len(idx),) or not np.isfinite(cs).all():
+        raise AssertionError(f"CS curve {cs}")
+    out["cs_curve"] = cs.tolist()
+    out["cs_spread_card"] = float(max(np.abs(c - cs).max() for c in curves))
+    # the CPU path on the same weights and the first images
+    card = cumulative_saliency(model, params, x[:REPLAY_BATCH], y[:REPLAY_BATCH], layer_idx=idx)
+    cpu = cumulative_saliency(model, params_cpu, x[:REPLAY_BATCH].cpu(), y[:REPLAY_BATCH].cpu(),
+                              layer_idx=idx)
+    out["cs_card_vs_cpu"] = float(np.abs(card - cpu).max())
+    if out["cs_card_vs_cpu"] > CS_ATOL:
+        raise AssertionError(f"CS curve on the card off the CPU's by {out['cs_card_vs_cpu']} "
+                             f"(bar {CS_ATOL})")
+    points = candidate_split_points(model, cs, idx, top_n=TOP_N)
+    out["peaks"] = points
+    if not points:
+        ranked = sorted(legal_split_candidates(model, cs, idx), key=lambda c: -c.accuracy_proxy)
+        points = [c.split_layer for c in ranked[:TOP_N]]
+    out["candidates"] = [(c.label, c.accuracy_proxy) for c in rank_candidates(cs, idx, points)]
+    out["top_sc"] = points[0]
+    return out
+
+
+def batches(n, batch) -> list:
+    """The first ``n`` batches of ``toy_image_iter`` (seed 0), made before
+    timing."""
+    it = toy_image_iter(batch, hw=224, seed=0)
+    return [next(it) for _ in range(n)]
+
+
+def train_at(model, params, params_cpu, cut) -> tuple:
+    """Z12, stage 1 (Eq. 3) at ``cut``: ``train_bottleneck`` for AE_STEPS;
+    the loss must fall.  Its first steps again on the card and on the CPU
+    from the card's initial AE at REPLAY_BATCH images.  Returns (AE, row)."""
+    data = batches(AE_STEPS + 1, AE_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ae, losses = B.train_bottleneck(model, params, cut, iter(data), AE_STEPS, AE_LR, AE_RATE,
+                                    AE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches(f"Z12 train at {cut}", launch_counts(), {})
+    row = {"cut": cut, "layer": model.layers[cut].name, "steps": AE_STEPS, "batch": AE_BATCH,
+           "step_ms": 1e3 * wall / AE_STEPS, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "first_loss": losses[0], "last_loss": losses[-1], "losses": losses}
+    if not np.isfinite(losses).all() or np.mean(losses[-5:]) >= np.mean(losses[:5]):
+        raise AssertionError(f"Z12 AE at {cut}: the loss does not fall: {losses}")
+    feat = tuple(model.activation_shapes(params, 1)[cut][1:])
+    ae0 = B.init_bottleneck(AE_SEED, feat, AE_RATE, device="cuda")
+    small = [(x[:REPLAY_BATCH], y[:REPLAY_BATCH]) for x, y in data[1:1 + AE_REPLAY_STEPS]]
+    _, card = B.train_bottleneck_from(model, params, cut, ae0, iter(small), AE_REPLAY_STEPS,
+                                      AE_LR, device="cuda")
+    _, cpu = B.train_bottleneck_from(model, params_cpu, cut, to_cpu(ae0), iter(small),
+                                     AE_REPLAY_STEPS, AE_LR, device="cpu")
+    row["replay_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    if not np.isfinite(card).all() or row["replay_rel_err"] > TRAIN_RTOL:
+        raise AssertionError(f"Z12 AE at {cut}: losses {card} on the card, {cpu} on the CPU "
+                             f"(bar {TRAIN_RTOL} relative)")
+    return ae, row
+
+
+def leaf_gap(got, want) -> float:
+    """The largest gap of two nests, leaf by leaf, over the leaf's max |want|."""
+    return max(float((a.cpu() - b.cpu()).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def finetune_replay(model, params, ae, small) -> dict:
+    """Finetune's first steps at REPLAY_BATCH images on the card, each held
+    to the CPU from the card's own state: the same loss (TRAIN_RTOL,
+    relative) and the same gradient (GRAD_RTOL of each leaf's max).  A
+    free-running replay cannot hold TRAIN_RTOL: Adam's first step sends a
+    weight whose gradient is rounding-sized +-lr either way."""
+    state = {"params": params, "ae": ae}
+    opt = adam_init(state)
+    gaps = {"loss": 0.0, "grad": 0.0}
+    for x, y in small:
+        def loss_on(dev):
+            xt = torch.as_tensor(x, device=dev, dtype=torch.float32)
+            yt = torch.as_tensor(y, device=dev)
+            return lambda st: B.task_loss(model, st["params"], st["ae"], FINETUNE_CUT, xt, yt)
+        loss, g = B.value_and_grad(loss_on("cuda"), state)
+        loss_cpu, g_cpu = B.value_and_grad(loss_on("cpu"), to_cpu(state))
+        gaps["loss"] = max(gaps["loss"], abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu)))
+        gaps["grad"] = max(gaps["grad"], leaf_gap(g, g_cpu))
+        del g_cpu
+        state, opt = adam_update(state, g, opt, AE_LR)
+    if gaps["loss"] > TRAIN_RTOL or gaps["grad"] > GRAD_RTOL:
+        raise AssertionError(f"Z12 finetune replay: gaps {gaps} (bars {TRAIN_RTOL} for the loss, "
+                             f"{GRAD_RTOL} for the gradient)")
+    return gaps
+
+
+def finetune_at(model, params, params_cpu, ae) -> dict:
+    """Z12, stage 2 (Eq. 4) at FINETUNE_CUT: ``finetune`` of backbone and AE
+    for FINETUNE_STEPS, timed and held to ``finetune`` on the CPU from the
+    same start (FREE_RTOL); then its first steps' gradients
+    (``finetune_replay``)."""
+    data = batches(FINETUNE_STEPS, AE_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tuned, tuned_ae, losses = B.finetune(model, params, ae, FINETUNE_CUT, iter(data),
+                                         FINETUNE_STEPS, AE_LR, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches("Z12 finetune", launch_counts(), {})
+    row = {"cut": FINETUNE_CUT, "steps": FINETUNE_STEPS, "batch": AE_BATCH,
+           "step_ms": 1e3 * wall / FINETUNE_STEPS,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses}
+    cpu_tuned, cpu_ae, cpu_losses = B.finetune(model, params_cpu, to_cpu(ae), FINETUNE_CUT,
+                                               iter(data), FINETUNE_STEPS, AE_LR, device="cpu")
+    xs, ys = toy_images(AE_BATCH, hw=224, seed=DEPLOY_DATA_SEED)
+    with torch.no_grad():
+        after = [float(B.task_loss(model, p, a, FINETUNE_CUT, torch.from_numpy(xs).to(dev),
+                                   torch.from_numpy(ys).to(dev)))
+                 for p, a, dev in ((tuned, tuned_ae, "cuda"), (cpu_tuned, cpu_ae, "cpu"))]
+    row["loss_after"] = after[0]
+    row["free_rel_err"] = [abs(a - b) / abs(b) for a, b in zip(losses + after[:1],
+                                                               cpu_losses + after[1:])]
+    if not np.isfinite(losses + after).all() or max(row["free_rel_err"]) > FREE_RTOL:
+        raise AssertionError(f"Z12 finetune: {row} against the CPU's losses {cpu_losses} and "
+                             f"{after[1]} after (bar {FREE_RTOL} relative)")
+    del tuned, tuned_ae, cpu_tuned, cpu_ae
+    small = [(x[:REPLAY_BATCH], y[:REPLAY_BATCH]) for x, y in data[:FINETUNE_REPLAY_STEPS]]
+    row["replay_rel_err"] = finetune_replay(model, params, ae, small)
+    torch.cuda.empty_cache()
+    return row
+
+
+def deploy(model, params, aes) -> dict:
+    """Z12, deploy: a ``SplitRuntime`` at each trained cut with its AE and
+    the int8 wire.  Each codec kernel launches twice a cut (``infer`` with
+    iters=1: a warm-up and a timed call of each hop); the logits are held
+    to the same chain through the plain versions, and their top-1
+    agreement with the unsplit model is printed, not held."""
+    x = torch.from_numpy(toy_images(BATCH, hw=224, seed=DEPLOY_DATA_SEED)[0]).cuda()
+    out = {}
+    reset_launches()
+    for cut, ae in aes.items():
+        rt = SplitRuntime(model, params, cut, ae=ae, quantize=True, device="cuda")
+        r = rt.infer(x, iters=1)
+        plain = plain_chain(model, params, {cut: ae}, x, cuts=(cut,)).cpu().numpy()
+        rel = float(np.abs(r.logits - plain).max() / np.abs(plain).max())
+        if r.logits.shape != (BATCH, 1000) or not np.isfinite(r.logits).all() or rel > LOGIT_RTOL:
+            raise AssertionError(f"Z12 deploy at {cut}: logits off the plain chain by {rel} "
+                                 f"(bar {LOGIT_RTOL})")
+        full = rt.reference(x)
+        out[model.layers[cut].name] = {
+            "cut": cut, "wire_bytes": r.wire_bytes, "logit_rel_err_vs_plain": rel,
+            "top1_agreement_with_unsplit": float((r.logits.argmax(-1) == full.argmax(-1)).mean()),
+            "total_ms": 1e3 * r.compute_s}
+    out["launches"] = launch_counts()
+    check_launches("Z12 deploy", out["launches"],
+                   {"bottleneck_compress": 2 * len(aes), "bottleneck_decompress": 2 * len(aes)})
     return out
 
 
@@ -607,12 +871,6 @@ def check_mamba(label, b, s, di, ds, nonzero, served_a, gen) -> dict:
     return e
 
 
-def tree_to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: tree_to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
-
-
 def padded(prompts) -> np.ndarray:
     """Left-padded with token 0, as ``ServingEngine.run`` pads."""
     toks = np.zeros((len(prompts), max(len(p) for p in prompts)), np.int32)
@@ -720,7 +978,7 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
     torch.cuda.synchronize()
     out = {"arch": arch, "dtype": dtype, "init_s": time.perf_counter() - t0,
            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "param_gb": sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9,
+           "param_gb": sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9,
            "prompt_lens": list(prompt_lens), "new_tokens": NEW_TOKENS,
            "n_layers": cfg.n_layers, "moe": cfg.moe}
     torch.cuda.reset_peak_memory_stats()      # peak_gb: serving, the weights included
@@ -824,14 +1082,6 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
     return out
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def split_lens(cfg, params, toks) -> dict:
     """Z4's split: the twin of examples/serve_split.py.  Cut the served batch
     at the middle block boundary, compress the residual through the
@@ -875,7 +1125,7 @@ def e2e_check(arch, n_layers=2, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> d
     cfg = served_cfg(arch, n_layers=n_layers, dtype="float32")
     per_prefill, per_step = per_token_launches(cfg)
     params_cpu = T.init_params(0, cfg, device="cpu")
-    params_gpu = tree_to(params_cpu, "cuda")
+    params_gpu = tree_map(torch.Tensor.cuda, params_cpu)
     rng = np.random.default_rng(2)
     toks = torch.from_numpy(padded([rng.integers(0, cfg.vocab, n).astype(np.int32)
                                     for n in prompt_lens]))
@@ -1020,13 +1270,37 @@ def main() -> int:
     e2e.append(e2e_check(JAMBA, n_layers=len(T.block_structure(served_cfg(JAMBA))[0])))
     print("end to end", json.dumps(e2e), flush=True)
 
+    # Z11, Z12: the split-point search, bottleneck training and the deploy
+    # of the trained AEs, on phase 4's VGG16 (the same seed), last so that
+    # the phases before keep their numbers (search and train before the
+    # deploy: tensors made under inference_mode cannot enter autograd); the
+    # phase-3 L2 flush buffer goes first, so their peaks hold their own work
+    _FLUSH.clear()
+    torch.cuda.empty_cache()
+    model = vgg16()
+    params = model.init(seed=0, device="cuda")
+    params_cpu = to_cpu(params)
+    found = search(model, params, params_cpu)
+    print("Z11 split search", json.dumps(found), flush=True)
+    aes = {}
+    for cut in dict.fromkeys((found["top_sc"], FINETUNE_CUT)):
+        aes[cut], row = train_at(model, params, params_cpu, cut)
+        print("Z12 train_bottleneck", json.dumps(row), flush=True)
+    tuned = finetune_at(model, params, params_cpu, aes[FINETUNE_CUT])
+    print("Z12 finetune", json.dumps(tuned), flush=True)
+    deployed = deploy(model, params, aes)
+    print("Z12 deploy", json.dumps(deployed), flush=True)
+    del model, params, params_cpu, aes
+    torch.cuda.empty_cache()
+
     # the kernels line: launches from each kernel's main path
     paths = {"bottleneck_compress": ("vgg16 phases 4-5", vgg_counts),
              "bottleneck_decompress": ("vgg16 phases 4-5", vgg_counts),
              "flash_attention": ("Z4 llama3.2-3b ServingEngine.run", llama["launches"]),
              "rwkv6_scan": ("Z5 rwkv6-1.6b ServingEngine.run", rwkv["launches"]),
              "mamba_scan": (f"Z8 {JAMBA} ServingEngine.run", jamba["launches"])}
-    also = {"Z4 split": llama["split"]["launches"],
+    also = {"Z12 deploy": deployed["launches"],
+            "Z4 split": llama["split"]["launches"],
             f"Z8 {JAMBA}": jamba["launches"],
             f"Z8 {JAMBA} prefill": jamba["prefill_launches"],
             f"Z8 {JAMBA} decode": jamba["decode_launches"],

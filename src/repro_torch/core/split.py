@@ -1,4 +1,5 @@
-"""Cut legality and split plans (twin of ``repro/core/split.py:36-156``).
+"""Cut legality, split plans and wire payloads (twin of
+``repro/core/split.py:36-183``).
 
 The multi-pod ``shard_map`` pipeline of the reference is not ported yet.
 """
@@ -7,6 +8,7 @@ from __future__ import annotations
 import itertools
 from dataclasses import dataclass
 
+from repro_torch.core.bottleneck import payload_bytes
 from repro_torch.models.layered import LayeredModel
 
 
@@ -94,3 +96,24 @@ def legal_cut_lists(model: LayeredModel, n_cuts: int) -> list:
     if n_cuts < 1:
         raise ValueError(f"n_cuts must be >= 1, got {n_cuts}")
     return list(itertools.combinations(legal_cuts(model), n_cuts))
+
+
+def wire_payload_bytes(model: LayeredModel, params, plan: SplitPlan,
+                       batch: int = 1, *, sample=None) -> int:
+    """Bytes crossing the first (edge-side) wire hop per ``batch`` frames
+    under ``plan``; see :func:`hop_payload_bytes` for the whole chain.
+    ``sample`` as in ``LayeredModel.activation_shapes``."""
+    return hop_payload_bytes(model, params, plan, batch, sample=sample)[0]
+
+
+def hop_payload_bytes(model: LayeredModel, params, plan: SplitPlan,
+                      batch: int = 1, *, sample=None) -> list:
+    """Per-hop wire payloads (bytes per ``batch`` frames) of a K-cut plan.
+
+    Hop k carries the activation after cut ``plan.splits[k]``, compressed
+    at the plan's bottleneck rate (one AE per cut, same rate).
+    """
+    shapes = model.activation_shapes(params, batch, sample=sample)
+    return [batch * payload_bytes(shapes[c][1:], plan.compression,
+                                  plan.wire_dtype_bytes)
+            for c in plan.splits]

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("bottleneck_compress", "bottleneck_decompress", "flash_attention", "mamba_scan",
@@ -96,3 +98,13 @@ def check(lib, code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}: "
                            f"{lib.kernel_error_string(abs(code)).decode()}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where grad mode is on and an input requires grad.  A kernel
+    has no backward and returns a fresh tensor with no ``grad_fn``, so a
+    gradient through it would come back as zero, with no error."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: an input requires grad, and the CUDA kernel has no "
+                           "backward (backward kernels: ROADMAP A17b); run it under "
+                           "torch.no_grad(), or on the CPU, whose plain version differentiates")

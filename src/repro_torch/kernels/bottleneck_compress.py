@@ -51,9 +51,10 @@ def bottleneck_compress(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     """f: (N, C) f32; w: (C, L) f32; b: (L,) f32 -> (q int8 (N, L), s f32 (N, 1)).
 
     A CPU tensor goes to :func:`bottleneck_compress_ref`; a CUDA tensor
-    launches the kernel on the current stream, or raises.  ``tile`` forces
-    one of ``tiles.TILES`` (for timing and tests; every tile gives the same
-    bits); the default is ``tiles.pick_tile``'s.
+    launches the kernel on the current stream, or raises (also where grad
+    mode is on and an input requires grad: the kernel has no backward).
+    ``tile`` forces one of ``tiles.TILES`` (for timing and tests; every tile
+    gives the same bits); the default is ``tiles.pick_tile``'s.
     """
     _check_inputs(f, w, b)
     tiles.check_name(tile)
@@ -61,6 +62,7 @@ def bottleneck_compress(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         return bottleneck_compress_ref(f, w, b)
     if f.device.type != "cuda":
         raise ValueError(f"bottleneck_compress runs on cpu or cuda, not {f.device}")
+    _build.refuse_grad("bottleneck_compress", f, w, b)
     n, c = f.shape
     l = w.shape[1]
     q = torch.empty((n, l), dtype=torch.int8, device=f.device)

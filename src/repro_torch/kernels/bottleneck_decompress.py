@@ -56,9 +56,10 @@ def bottleneck_decompress(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
     """q: (N, L) int8; s: (N, 1) f32; w: (L, C) f32; b: (C,) f32 -> (N, C) f32.
 
     A CPU tensor goes to :func:`bottleneck_decode_ref`; a CUDA tensor
-    launches the kernel on the current stream, or raises.  ``tile`` forces
-    one of ``tiles.TILES`` (for timing and tests; every tile gives the same
-    bits); the default is ``tiles.pick_tile``'s.
+    launches the kernel on the current stream, or raises (also where grad
+    mode is on and an input requires grad: the kernel has no backward).
+    ``tile`` forces one of ``tiles.TILES`` (for timing and tests; every tile
+    gives the same bits); the default is ``tiles.pick_tile``'s.
     """
     _check_inputs(q, s, w, b)
     tiles.check_name(tile)
@@ -66,6 +67,7 @@ def bottleneck_decompress(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
         return bottleneck_decode_ref(q, s, w, b)
     if q.device.type != "cuda":
         raise ValueError(f"bottleneck_decompress runs on cpu or cuda, not {q.device}")
+    _build.refuse_grad("bottleneck_decompress", q, s, w, b)
     n, l = q.shape
     c = w.shape[1]
     out = torch.empty((n, c), dtype=torch.float32, device=q.device)

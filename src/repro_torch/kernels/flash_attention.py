@@ -74,13 +74,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns (B, Sq, H, D) in q's dtype; scores, softmax and sums are f32.
 
     A CPU tensor goes to :func:`flash_attention_ref`; a CUDA tensor launches
-    its dtype's kernel on the current stream (``ROUTES``), or raises.
+    its dtype's kernel on the current stream (``ROUTES``), or raises (also
+    where grad mode is on and an input requires grad: the kernel has no
+    backward).
     """
     _check_inputs(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    _build.refuse_grad("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:

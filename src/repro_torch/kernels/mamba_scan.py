@@ -66,13 +66,15 @@ def mamba_scan(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor, x: torch.Tens
     ``state`` is not written.
 
     A CPU tensor goes to :func:`mamba_scan_ref`; a CUDA tensor launches the
-    kernel on the current stream, or raises.
+    kernel on the current stream, or raises (also where grad mode is on and
+    an input requires grad: the kernel has no backward).
     """
     _check_inputs(dt, b, c, x, a, state)
     if dt.device.type == "cpu":
         return mamba_scan_ref(dt, b, c, x, a, state)
     if dt.device.type != "cuda":
         raise ValueError(f"mamba_scan runs on cpu or cuda, not {dt.device}")
+    _build.refuse_grad("mamba_scan", dt, b, c, x, a, state)
     bsz, s, di = dt.shape
     ds = b.shape[2]
     if ds not in STATE_DIMS:

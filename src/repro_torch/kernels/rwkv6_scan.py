@@ -70,13 +70,15 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     written.
 
     A CPU tensor goes to :func:`rwkv6_scan_ref`; a CUDA tensor launches the
-    kernel on the current stream, or raises.
+    kernel on the current stream, or raises (also where grad mode is on and
+    an input requires grad: the kernel has no backward).
     """
     _check_inputs(r, k, v, w, u, state)
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on cpu or cuda, not {r.device}")
+    _build.refuse_grad("rwkv6_scan", r, k, v, w, u, state)
     b, s, h, d = r.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")

@@ -113,6 +113,47 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         comp.bottleneck_compress(f, w.cpu(), b)
 
 
+
+def _kernel_calls(dev):
+    """Each wrapper at the smallest shapes its kernel takes: (call, inputs)."""
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+    q, s, wd, bd = _codes(8, 16, 4, dev)
+    return {
+        "bottleneck_compress": (comp.bottleneck_compress, list(_inputs(8, 16, 4, dev))),
+        "bottleneck_decompress": (bottleneck_decompress, [q, s, wd, bd]),
+        "flash_attention": (flash_attention, [randn(1, 16, 2, 128), randn(1, 16, 1, 128),
+                                              randn(1, 16, 1, 128)]),
+        "rwkv6_scan": (rwkv6_scan, [randn(1, 4, 2, 64), randn(1, 4, 2, 64), randn(1, 4, 2, 64),
+                                    torch.full((1, 4, 2, 64), 0.9, device=dev),
+                                    randn(2, 64), randn(1, 2, 64, 64)]),
+        "mamba_scan": (mamba_scan, [0.1 * randn(1, 4, 8).abs(), randn(1, 4, 16), randn(1, 4, 16),
+                                    randn(1, 4, 8), -randn(8, 16).abs(), randn(1, 8, 16)]),
+    }
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    """A kernel returns a fresh tensor with no grad_fn: a gradient through it
+    would come back as zero.  Each wrapper raises instead, launching
+    nothing, while grad mode is on and an input requires grad; under
+    ``no_grad`` the same call launches."""
+    for name, (call, inputs) in _kernel_calls(cuda).items():
+        for i, t in enumerate(inputs):
+            if not t.is_floating_point():
+                continue
+            args = [a.requires_grad_() if j == i else a for j, a in enumerate(
+                [x.detach().clone() for x in inputs])]
+            reset_launches()
+            with pytest.raises(RuntimeError, match="requires grad"):
+                call(*args)
+            assert sum(launch_counts()[name].values()) == 0, (name, i)
+            with torch.no_grad():
+                call(*args)
+            torch.cuda.synchronize()
+            assert sum(launch_counts()[name].values()) == 1, (name, i)
+
 def test_split_runtime_on_the_card_matches_the_cpu_path(cuda):
     model = vgg_cifar(n_classes=8, input_hw=16, width_mult=0.25)
     params_cpu = model.init(0, device="cpu")

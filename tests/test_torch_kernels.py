@@ -12,6 +12,9 @@ from repro.kernels.bottleneck_decompress import bottleneck_decompress_any  # noq
 from repro_torch.kernels import launch_counts, ref, tiles  # noqa: E402
 from repro_torch.kernels.bottleneck_compress import bottleneck_compress  # noqa: E402
 from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 
 # (N, C, L); the Pallas kernel needs N and C to be whole tiles
 SHAPES = [(128, 256, 128), (256, 512, 64), (64, 96, 48)]
@@ -206,3 +209,70 @@ def test_a_forced_tile_on_cpu_tensors_takes_the_plain_version(tile):
     out = bottleneck_decompress(q, s, wd, torch.zeros(96), tile=tile)
     assert torch.equal(out, ref.bottleneck_decode_ref(q, s, wd, torch.zeros(96)))
     assert launch_counts() == before
+
+
+def _grad_cases():
+    """Each wrapper on small CPU inputs: (call, inputs, which require grad)."""
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+    f = randn(6, 10).abs()
+    return {
+        "bottleneck_compress": (bottleneck_compress, [f, randn(10, 4) / 3, 0.1 * randn(4)],
+                                [True, True, True]),
+        "bottleneck_decompress": (
+            bottleneck_decompress,
+            [torch.randint(-127, 128, (6, 4), generator=g).to(torch.int8),
+             0.01 + torch.rand((6, 1), generator=g), randn(4, 10) / 2, randn(10)],
+            [False, True, True, True]),
+        "flash_attention": (flash_attention, [randn(1, 5, 2, 8), randn(1, 7, 1, 8),
+                                              randn(1, 7, 1, 8)], [True, True, True]),
+        "rwkv6_scan": (rwkv6_scan, [0.5 * randn(1, 4, 2, 3), 0.5 * randn(1, 4, 2, 3),
+                                    0.5 * randn(1, 4, 2, 3),
+                                    torch.exp(-torch.exp(randn(1, 4, 2, 3) - 1.0)),
+                                    0.3 * randn(2, 3), 0.2 * randn(1, 2, 3, 3)], [True] * 6),
+        "mamba_scan": (mamba_scan, [0.1 * torch.nn.functional.softplus(randn(1, 4, 3)),
+                                    0.5 * randn(1, 4, 2), 0.5 * randn(1, 4, 2), randn(1, 4, 3),
+                                    -torch.exp(0.3 * randn(3, 2)), 0.3 * randn(1, 3, 2)],
+                       [True] * 6),
+    }
+
+
+@pytest.mark.parametrize("name", ["bottleneck_compress", "bottleneck_decompress",
+                                  "flash_attention", "rwkv6_scan", "mamba_scan"])
+def test_plain_dispatch_still_differentiates(name):
+    """On CPU tensors a wrapper returns its plain version's differentiable
+    result, where a CUDA tensor that requires grad makes it raise
+    (tests/test_torch_cuda.py).  Its gradient, projected on a random
+    direction, is held to a central difference of the wrapper itself in f32
+    (step 1e-3, bar 1e-2 relative: f32 rounding over the step is some 1e-4
+    of it; the int8 codes carry no gradient).  The two scans' plain versions
+    also take float64, so ``gradcheck`` holds them there too."""
+    call, inputs, needs = _grad_cases()[name]
+    inputs = [t.clone().requires_grad_(n) for t, n in zip(inputs, needs)]
+    gen = torch.Generator().manual_seed(1)
+
+    def loss(args):
+        out = call(*args)
+        outs = [o for o in (out if isinstance(out, tuple) else (out,)) if o.is_floating_point()]
+        return sum((o.double() * torch.randn(o.shape, generator=torch.Generator().manual_seed(i),
+                                             dtype=torch.float64)).sum()
+                   for i, o in enumerate(outs))
+    diff = [t for t in inputs if t.requires_grad]
+    grads = torch.autograd.grad(loss(inputs), diff)
+    assert all(gr is not None and gr.abs().sum() > 0 for gr in grads)
+    dirs = [torch.randn(t.shape, generator=gen) for t in diff]
+    analytic = float(sum((gr.double() * d).sum() for gr, d in zip(grads, dirs)))
+
+    def shifted(step):
+        moved = iter(dirs)
+        return float(loss([(t + step * next(moved)).detach() if t.requires_grad else t
+                           for t in inputs]))
+    with torch.no_grad():
+        numeric = (shifted(1e-3) - shifted(-1e-3)) / 2e-3
+    assert abs(analytic - numeric) <= 1e-2 * abs(numeric), (analytic, numeric)
+    if name in ("rwkv6_scan", "mamba_scan"):
+        plain = ref.rwkv6_scan_ref if name == "rwkv6_scan" else ref.mamba_scan_ref
+        assert torch.autograd.gradcheck(
+            plain, [t.detach().double().requires_grad_() for t in inputs])

@@ -1,0 +1,185 @@
+"""The port's training half (``training/optimizer.py``, the losses and the
+two training stages of ``core/bottleneck.py``) and its copy of
+``data/synthetic.py`` against the JAX package, on the small VGG of
+``tests/conftest.py`` (``vgg_cifar(8, 16, 0.25)``, its weights drawn with
+numpy in the reference's tree), from the same weights, AEs and batches.
+
+Bars, fixed before measuring: one Adam update within 1e-6 of max |param|
+(the same f32 operations in the same order); the losses within 1e-6
+relative; ``train_bottleneck``'s 5 losses and final AE within 1e-5
+relative and ``finetune``'s 3 within 1e-4 (steps compound the sum-order
+differences of the convolutions' backward passes); the data bit for bit.
+The reference's functions run under ``jax.jit``, as its training loops run
+them: one compile each, where run op by op each primitive compiles.
+"""
+import itertools
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.core import bottleneck as JB  # noqa: E402
+from repro.data import synthetic as JD  # noqa: E402
+from repro.models import vgg as jvgg  # noqa: E402
+from repro.training import optimizer as JO  # noqa: E402
+from repro_torch.core import bottleneck as TB  # noqa: E402
+from repro_torch.data import synthetic as TD  # noqa: E402
+from repro_torch.models import vgg as tvgg  # noqa: E402
+from repro_torch.params import ae_from_numpy, vgg_params_from_numpy  # noqa: E402
+from repro_torch.training import optimizer as TO  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+
+ADAM_RTOL = 1e-6
+LOSS_RTOL = 1e-6
+TRAIN_RTOL = 1e-5
+FINETUNE_RTOL = 1e-4
+SPLITS = [3, 6]          # relu3 and pool6 of the small VGG: (8, 8, 8) and (4, 4, 16)
+
+
+def he_normal_like(shapes, seed):
+    """Weights for a reference params tree of ``ShapeDtypeStruct``s, drawn
+    with numpy, without compiling a JAX init: normal with std
+    sqrt(2 / fan-in), as the reference's VGG draws its convolutions, and
+    biases 0."""
+    rng = np.random.default_rng(seed)
+
+    def draw(s):
+        if len(s.shape) < 2:
+            return jnp.zeros(s.shape, s.dtype)
+        std = np.sqrt(2.0 / np.prod(s.shape[:-1]))
+        return jnp.asarray((std * rng.standard_normal(s.shape)).astype(s.dtype))
+    return jax.tree.map(draw, shapes)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jm = jvgg.vgg_cifar(n_classes=8, input_hw=16, width_mult=0.25)
+    jp = he_normal_like(jax.eval_shape(jm.init, jax.random.PRNGKey(0)), 0)
+    tm = tvgg.vgg_cifar(n_classes=8, input_hw=16, width_mult=0.25)
+    return jm, jp, tm, vgg_params_from_numpy(tm, jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _ref_ae(jm, jp, split, seed=0, rate=0.5):
+    """The AE the reference's ``train_bottleneck`` starts from: sized by the
+    first batch of its iterator, drawn from ``PRNGKey(seed)``."""
+    x0, _ = next(JD.toy_image_iter(8, hw=16, seed=0))
+    f0 = jax.eval_shape(lambda x: jm.apply_range(jp, x, 0, split + 1), jnp.asarray(x0))
+    return JB.init_bottleneck(jax.random.PRNGKey(seed), f0.shape[1:], rate)
+
+
+def _close(got, want, rtol, what):
+    want = np.asarray(want)
+    assert got.shape == want.shape, what
+    assert np.abs(got - want).max() <= rtol * np.abs(want).max(), what
+
+
+def _check_ae(got, want, rtol):
+    for part in ("enc", "dec"):
+        for k in ("w", "b"):
+            _close(got[part][k].numpy(), want[part][k], rtol, f"{part}.{k}")
+
+
+def test_adam_updates_match_the_reference():
+    rng = np.random.default_rng(0)
+    shapes = {"a": (5, 3), "b": [(7,), (2, 2, 3)]}
+    p = {"a": rng.standard_normal(shapes["a"]).astype(np.float32),
+         "b": [rng.standard_normal(s).astype(np.float32) for s in shapes["b"]]}
+    jp, tp = jax.tree.map(jnp.asarray, p), tree_map(torch.from_numpy, p)
+    jst, tst = JO.adam_init(jp), TO.adam_init(tp)
+    for step in range(3):           # gradients from large to below eps
+        g = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 10.0 ** (1 - 4 * step))
+                         .astype(np.float32), p)
+        jp, jst = jax.jit(JO.adam_update)(jp, jax.tree.map(jnp.asarray, g), jst, 5e-4)
+        tp, tst = TO.adam_update(tp, tree_map(torch.from_numpy, g), tst, 5e-4)
+        assert int(tst["t"]) == int(jst["t"]) == step + 1
+        for got, want in zip(tree_leaves(tp), jax.tree.leaves(jp)):
+            _close(got.numpy(), want, ADAM_RTOL, f"step {step}")
+        for key in ("m", "v"):
+            for got, want in zip(tree_leaves(tst[key]), jax.tree.leaves(jst[key])):
+                _close(got.numpy(), want, ADAM_RTOL, f"{key} step {step}")
+
+
+def test_ae_loss_matches_the_reference(pair):
+    jm, jp, _, _ = pair
+    jae = _ref_ae(jm, jp, 6)
+    feats = np.random.default_rng(1).standard_normal((8, 4, 4, 16)).astype(np.float32)
+    want = float(jax.jit(JB.ae_loss)(jae, jnp.asarray(feats)))
+    got = float(TB.ae_loss(ae_from_numpy(jax.tree.map(np.asarray, jae), device="cpu"),
+                           torch.from_numpy(feats)))
+    assert abs(got - want) <= LOSS_RTOL * abs(want)
+    _close(TB.reconstruct(ae_from_numpy(jax.tree.map(np.asarray, jae), device="cpu"),
+                          torch.from_numpy(feats)).numpy(),
+           jax.jit(JB.reconstruct)(jae, jnp.asarray(feats)), LOSS_RTOL, "reconstruct")
+
+
+@pytest.mark.parametrize("kind", ["mse", "ce"])
+@pytest.mark.parametrize("with_ae", [True, False])
+def test_task_loss_matches_the_reference(pair, kind, with_ae):
+    jm, jp, tm, tp = pair
+    jae = _ref_ae(jm, jp, 6) if with_ae else None
+    tae = ae_from_numpy(jax.tree.map(np.asarray, jae), device="cpu") if with_ae else None
+    x, y = JD.toy_images(8, hw=16, seed=3)
+    want = float(jax.jit(lambda p, a, x, y: JB.task_loss(jm, p, a, 6, x, y, kind))(
+        jp, jae, jnp.asarray(x), jnp.asarray(y)))
+    got = float(TB.task_loss(tm, tp, tae, 6, torch.from_numpy(x), torch.from_numpy(y), kind))
+    assert abs(got - want) <= LOSS_RTOL * abs(want)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_train_bottleneck_matches_the_reference_from_its_init(pair, split):
+    """The reference trains from its own AE; the port's loop starts from the
+    same AE (carried over) and takes the same batches after the first."""
+    jm, jp, tm, tp = pair
+    jae, jlosses = JB.train_bottleneck(jm, jp, split, JD.toy_image_iter(8, hw=16, seed=0), 5)
+    it = TD.toy_image_iter(8, hw=16, seed=0)
+    next(it)                                    # the reference spent it on shapes
+    ae0 = ae_from_numpy(jax.tree.map(np.asarray, _ref_ae(jm, jp, split)), device="cpu")
+    tae, tlosses = TB.train_bottleneck_from(tm, tp, split, ae0, it, 5, device="cpu")
+    np.testing.assert_allclose(tlosses, jlosses, rtol=TRAIN_RTOL, atol=0)
+    _check_ae(tae, jae, TRAIN_RTOL)
+
+
+def test_train_bottleneck_spends_its_first_batch_on_shapes(pair):
+    _, _, tm, tp = pair
+    ae, losses = TB.train_bottleneck(tm, tp, 6, TD.toy_image_iter(8, hw=16, seed=0), 3,
+                                     seed=5, device="cpu")
+    it = TD.toy_image_iter(8, hw=16, seed=0)
+    next(it)
+    ae0 = TB.init_bottleneck(5, (4, 4, 16), 0.5, device="cpu")
+    want_ae, want = TB.train_bottleneck_from(tm, tp, 6, ae0, it, 3, device="cpu")
+    assert losses == want
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ae), tree_leaves(want_ae)))
+
+
+def test_finetune_matches_the_reference_from_its_state(pair):
+    jm, jp, tm, tp = pair
+    jae = _ref_ae(jm, jp, 6)
+    tae = ae_from_numpy(jax.tree.map(np.asarray, jae), device="cpu")
+    jparams, jae2, jlosses = JB.finetune(jm, jp, jae, 6, JD.toy_image_iter(8, hw=16, seed=7), 3)
+    tparams, tae2, tlosses = TB.finetune(tm, tp, tae, 6, TD.toy_image_iter(8, hw=16, seed=7), 3,
+                                         device="cpu")
+    np.testing.assert_allclose(tlosses, jlosses, rtol=FINETUNE_RTOL, atol=0)
+    want = vgg_params_from_numpy(tm, jax.tree.map(np.asarray, jparams), device="cpu")
+    for layer, got_p, want_p in zip(tm.layers, tparams, want):
+        for k in got_p:
+            _close(got_p[k].numpy(), want_p[k].numpy(), FINETUNE_RTOL, f"{layer.name}.{k}")
+    _check_ae(tae2, jae2, FINETUNE_RTOL)
+    # the inputs stay as they were
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(tp), tree_leaves(vgg_params_from_numpy(
+            tm, jax.tree.map(np.asarray, jp), device="cpu"))))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_synthetic_data_is_bit_equal(seed):
+    for got, want in zip(TD.toy_images(12, hw=16, seed=seed), JD.toy_images(12, hw=16, seed=seed)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    for (gx, gy), (wx, wy) in zip(itertools.islice(TD.toy_image_iter(4, 224, seed), 2),
+                                  itertools.islice(JD.toy_image_iter(4, 224, seed), 2)):
+        assert np.array_equal(gx, wx) and np.array_equal(gy, wy)
+    got, want = TD.token_batch(3, 20, 512, seed), JD.token_batch(3, 20, 512, seed)
+    assert all(np.array_equal(got[k], want[k]) for k in ("tokens", "labels"))
