@@ -60,15 +60,31 @@ no install: it puts ``src/`` on the path itself).  Phases:
     first 2 steps' gradients at 2 images to the CPU's; then a
     ``SplitRuntime`` at each trained cut with its AE and the int8 wire,
     through both codec kernels, held to the plain chain;
-15. print the kernels' launch counts with their errors, times and bounds as
+15. (Z13) the paper's communication-aware simulator (§IV, Figs. 3-4) on the
+    same VGG16 with Z12's AEs: LC, RC and SC at both trained cuts, over TCP
+    and UDP at 5 loss rates (``bench_protocol.py``'s channel), 64 toy
+    images, "accuracy" read as agreement with the unsplit model; each
+    flow's analytic times held to the CPU copy's, the simulator's own
+    per-chunk inference held to the CPU's with the same loss masks, and
+    Fig. 4's shape (TCP agreement flat and latency rising, UDP latency
+    flat);
+16. (Z14) hardware-in-the-loop calibration (``runtime.calibrate``, fused) at
+    batch 8 over relu1, pool16, pool23 and fc0_relu, the AE cuts through
+    both codec kernels; the table's JSON round trip, each cut's frame
+    length, its measured cells priced through ``measure_flow`` beside the
+    analytic ``server-gpu`` profile, fed to the simulator, and
+    ``HILPlatform.measure`` of the unsplit forward;
+17. print the kernels' launch counts with their errors, times and bounds as
     one JSON line, then ``{"ok": true, "device": ...}``.
 
 Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z11, Z12's training and its
-deploy) runs with the launch counts set to 0 just before it and read just
-after; a served run's prefill and decode are counted apart as well, and
-``flash_attention``'s launches by route (``wgmma_bf16`` for a bf16 model,
-``simt_f32`` for an f32 one).  Z11 and Z12's training launch no kernel (a
-wrapper refuses an input that requires grad).  Any failed check raises, so
+deploy, Z13, Z14) runs with the launch counts set to 0 just before it and
+read just after; a served run's prefill and decode are counted apart as
+well, and ``flash_attention``'s launches by route (``wgmma_bf16`` for a bf16
+model, ``simt_f32`` for an f32 one).  Z11, Z12's training and Z13 launch no
+kernel (a wrapper refuses an input that requires grad; the simulator runs
+the plain f32 forward); Z14 launches each codec kernel a number of times
+worked out from ``calibrate``'s code.  Any failed check raises, so
 the script exits non-zero and prints no result.  It exits non-zero as well
 where CUDA is not available.
 """
@@ -76,10 +92,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -89,13 +107,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.api.types import legal_split_candidates  # noqa: E402
+from repro_torch.api.types import AnalyticCost, CostStack, legal_split_candidates  # noqa: E402
 from repro_torch.configs import SERVED, get_config  # noqa: E402
 from repro_torch.core import bottleneck as B  # noqa: E402
 from repro_torch.core import stats  # noqa: E402
 from repro_torch.core.qos import rank_candidates  # noqa: E402
 from repro_torch.core.saliency import candidate_split_points, cumulative_saliency  # noqa: E402
 from repro_torch.core.bottleneck import latent_channels  # noqa: E402
+from repro_torch.core.scenarios import (PLATFORMS, HILPlatform, Scenario,  # noqa: E402
+                                        scenario_times_and_payload)
+from repro_torch.core.split import SplitPlan  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ref, reset_launches, tiles  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels import bottleneck_decompress as decomp  # noqa: E402
@@ -108,7 +129,11 @@ from repro_torch.data.synthetic import toy_image_iter, toy_images  # noqa: E402
 from repro_torch.models.vgg import feature_index, vgg16  # noqa: E402
 from repro_torch.training.optimizer import adam_init, adam_update  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.netsim.channel import Channel  # noqa: E402
+from repro_torch.netsim.simulator import (ApplicationSimulator, NetworkConfig,  # noqa: E402
+                                          measure_flow)
 from repro_torch.runtime import wire as W  # noqa: E402
+from repro_torch.runtime.calibrate import CalibrationTable, calibrate  # noqa: E402
 from repro_torch.runtime.engine import SplitRuntime, run_clients  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
@@ -249,6 +274,31 @@ GRAD_RTOL = 2e-2
 # run 7).  A state left unchanged reads about 0.5 at the second loss
 FREE_RTOL = 1e-2
 DEPLOY_DATA_SEED = 10_000     # a batch no training step saw
+# Z13 / Z14: the paper's simulator (§IV, Figs. 3-4) and its hardware-in-the-loop
+# calibration on phase 4's VGG16 with Z12's AEs, as twins of
+# benchmarks/bench_protocol.py (its channel, loss rates, image seed and frame
+# count), bench_split_latency.py and bench_runtime.py
+SIM_IMAGES, SIM_IMAGE_SEED, SIM_FRAMES = 64, 777, 8
+SIM_LOSSES = (0.0, 0.05, 0.1, 0.2, 0.3)
+SIM_CHANNEL = {"latency_s": 100e-6, "capacity_bps": 1e9, "interface_bps": 1e9, "seed": 11}
+# each flow's FLOP-count times and payload against the same from the CPU copy
+# of the weights: the same integers and numpy arithmetic
+SIM_REL = 1e-12
+# the simulator's own inference of the first SIM_HOLD_IMAGES images on the card
+# against the CPU's with the same masks, relative to max |logit|: Z11's bar for
+# f32 summed in another order (its readings were about 2e-6)
+SIM_HOLD_IMAGES, SIM_LOGIT_RTOL = 2, 1e-4
+UDP_LATENCY_SPREAD = 0.2      # bench_protocol.py's fig4.udp.latency_flat
+CAL_BATCH, CAL_ITERS = 8, 3
+CAL_CUTS = ("relu1", "pool16", "pool23", "fc0_relu")
+CAL_PRICED = ("relu1", "pool23", "pool16")
+CAL_LEFT_OUT = "relu3"        # priced analytically: not in the grid
+SIM_CAL_LOSSES = (0.0, 0.1)
+# each codec kernel's launches in Z14's calibrate, at each cut with an AE:
+# compress in the eager encode and in the fused edge segment, decompress in
+# the eager decode and in the fused server leg, each a warm-up and CAL_ITERS
+# timed calls (runtime/calibrate.py, runtime/engine.timeit_blocked)
+CAL_CODEC_LAUNCHES_PER_AE_CUT = 2 * (1 + CAL_ITERS)
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS, exps: float = 0) -> tuple:
@@ -720,6 +770,175 @@ def deploy(model, params, aes) -> dict:
     out["launches"] = launch_counts()
     check_launches("Z12 deploy", out["launches"],
                    {"bottleneck_compress": 2 * len(aes), "bottleneck_decompress": 2 * len(aes)})
+    return out
+
+
+def simulate_fig4(model, params, params_cpu, aes) -> tuple:
+    """Z13: ``ApplicationSimulator`` over TCP and UDP at SIM_LOSSES for each
+    configuration, on SIM_IMAGES toy images labelled with the unsplit
+    model's own argmax (random weights: "accuracy" is agreement with it).
+    Holds (a) each flow's analytic times and payload to the CPU copy's, (b)
+    at the lowest and highest loss the simulator's inference of the first
+    images on the card to the CPU's with the same masks, (c) TCP agreement
+    equal at every loss, (d) TCP latency rising with loss, (e) UDP latency
+    within UDP_LATENCY_SPREAD.  No kernel runs.  Returns (images, labels)."""
+    xs, _ = toy_images(SIM_IMAGES, hw=224, seed=SIM_IMAGE_SEED)
+    with torch.inference_mode():
+        ys = model.apply(params, torch.from_numpy(xs).cuda()).argmax(-1).cpu().numpy()
+    input_bytes = int(np.prod(xs.shape[1:])) * 4
+    scenarios = {"LC": (Scenario("LC"), None), "RC": (Scenario("RC"), None)}
+    scenarios.update({f"SC@{model.layers[cut].name}": (Scenario("SC", SplitPlan(cut)), ae)
+                      for cut, ae in aes.items()})
+    reset_launches()
+    rows, cpu_logits = [], {}
+    for name, (sc, ae) in scenarios.items():
+        want = scenario_times_and_payload(sc, model, params_cpu, input_bytes)
+        for proto in ("tcp", "udp"):
+            for p in SIM_LOSSES:
+                net = NetworkConfig(proto, Channel(loss_rate=p, **SIM_CHANNEL))
+                sim = ApplicationSimulator(model, params, net, ae=ae, device="cuda")
+                t0 = time.perf_counter()
+                flow = measure_flow(sc, net, model, params, input_bytes, n_frames=SIM_FRAMES)
+                v = sim.simulate(sc, xs, ys, flow=flow)
+                row = {"scenario": name, "protocol": proto, "loss": p,
+                       "latency_ms": 1e3 * v.latency_s, "wire_bytes": v.meta["wire_bytes"],
+                       "mean_tx": v.meta.get("mean_tx"), "agreement": v.accuracy,
+                       "sim_s": time.perf_counter() - t0}
+                for k in ("edge_s", "server_s", "wire_bytes"):
+                    if not math.isclose(flow[k], want[k], rel_tol=SIM_REL, abs_tol=0):
+                        raise AssertionError(f"Z13 {name} {proto} {p}: {k} {flow[k]} against "
+                                             f"{want[k]} from the CPU copy (bar {SIM_REL})")
+                if p in (SIM_LOSSES[0], SIM_LOSSES[-1]):
+                    lossy = proto == "udp" and sc.kind != "LC"
+                    masks = (sim.loss_masks(sc, flow["frames"], SIM_HOLD_IMAGES, xs.shape[1:])
+                             if lossy else None)
+                    key = (name, proto, p) if lossy else name
+                    if key not in cpu_logits:
+                        cpu_sim = ApplicationSimulator(
+                            model, params_cpu, net, device="cpu",
+                            ae=None if ae is None else to_cpu(ae))
+                        cpu_logits[key] = cpu_sim.predict(sc, xs[:SIM_HOLD_IMAGES], masks)
+                    card = sim.predict(sc, xs[:SIM_HOLD_IMAGES], masks)
+                    cpu = cpu_logits[key]
+                    gap, scale = float(np.abs(card - cpu).max()), float(np.abs(cpu).max())
+                    row["card_vs_cpu"] = gap / scale if scale > 0 else gap
+                    if not (np.isfinite(card).all() and row["card_vs_cpu"] <= SIM_LOGIT_RTOL):
+                        raise AssertionError(f"Z13 {name} {proto} {p}: logits on the card off "
+                                             f"the CPU's by {row['card_vs_cpu']} "
+                                             f"(bar {SIM_LOGIT_RTOL})")
+                rows.append(row)
+                print("Z13 simulate", json.dumps(row), flush=True)
+    check_launches("Z13 simulate", launch_counts(), {})
+    for name in scenarios:
+        tcp = [r for r in rows if r["scenario"] == name and r["protocol"] == "tcp"]
+        udp = [r for r in rows if r["scenario"] == name and r["protocol"] == "udp"]
+        if len({r["agreement"] for r in tcp}) != 1:
+            raise AssertionError(f"Z13 {name}: TCP agreement moves with loss: {tcp}")
+        if name != "LC" and not tcp[-1]["latency_ms"] > tcp[0]["latency_ms"]:
+            raise AssertionError(f"Z13 {name}: TCP latency does not grow with loss: {tcp}")
+        lat0, lat1 = udp[0]["latency_ms"], udp[-1]["latency_ms"]
+        if abs(lat1 - lat0) > UDP_LATENCY_SPREAD * lat0:
+            raise AssertionError(f"Z13 {name}: UDP latency {lat0} -> {lat1} ms moves by more "
+                                 f"than {UDP_LATENCY_SPREAD} of it")
+        print(f"Z13 {name}: UDP agreement by loss {[r['agreement'] for r in udp]}, "
+              f"falls: {udp[-1]['agreement'] < udp[0]['agreement']}", flush=True)
+    return xs, ys
+
+
+def calibrate_hil(model, params, aes, xs, ys) -> dict:
+    """Z14: ``calibrate`` (fused) at CAL_BATCH over CAL_CUTS, the trained AEs
+    at their cuts; the codec kernels' launches held to the count worked out
+    from the code, every time finite and positive, each cut's frame length,
+    the JSON round trip.  Then the measured cells priced through
+    ``measure_flow`` with a CostStack over the analytic model (held
+    "measured", and "analytic" at CAL_LEFT_OUT), printed against the
+    analytic ``server-gpu`` profile, fed to the simulator over TCP; and
+    ``HILPlatform.measure`` of the unsplit forward beside the LC entry."""
+    names = {layer.name: i for i, layer in enumerate(model.layers)}
+    cuts = [names[n] for n in CAL_CUTS]
+    ae_map = {c: ae for c, ae in aes.items() if c in cuts}
+    # the images calibrate would draw itself (numpy, seed 0), kept for the checks
+    x = np.random.default_rng(0).standard_normal(
+        (CAL_BATCH,) + tuple(model.input_shape)).astype(np.float32)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    table = calibrate(model, params, cuts, ae_map=ae_map, x=x, iters=CAL_ITERS, fused=True,
+                      device="cuda")
+    out = {"batch": table.batch, "cuts": {model.layers[c].name: c for c in cuts},
+           "calibrate_s": time.perf_counter() - t0, "launches": launch_counts()}
+    n = CAL_CODEC_LAUNCHES_PER_AE_CUT * len(ae_map)
+    check_launches("Z14 calibrate", out["launches"],
+                   {"bottleneck_compress": n, "bottleneck_decompress": n})
+    xt = torch.from_numpy(x).cuda()
+    entries = {}
+    for key, e in table.entries.items():
+        kind, _, split = key.partition("@")
+        timed = {"LC": [e.head_s], "RC": [e.tail_s]}.get(
+            kind, [e.head_s, e.tail_s, e.encode_s, e.decode_s, e.fused_edge_s, e.fused_server_s])
+        if not all(math.isfinite(t) and t > 0 for t in timed):
+            raise AssertionError(f"Z14 {key}: times {e}")
+        entries[key] = {k: 1e3 * v if k.endswith("_s") else v
+                        for k, v in dataclasses.asdict(e).items()}
+        if kind == "SC":
+            cut = int(split)
+            with torch.inference_mode():
+                f = model.apply_range(params, xt, 0, cut + 1)
+                frame = W.to_bytes(W.encode_activation(f, ae_map.get(cut)))
+            if e.wire_bytes != len(frame):
+                raise AssertionError(f"Z14 {key}: wire_bytes {e.wire_bytes}, frame {len(frame)}")
+    out["entries_ms"] = entries
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "calibration.json")
+        table.to_json(path)
+        back = CalibrationTable.from_json(path)
+    if (back.entries != table.entries or back.batch != table.batch
+            or back.meta != table.meta or back.model_name != table.model_name):
+        raise AssertionError("Z14: the table's JSON round trip changed it")
+
+    # from here on, pricing and simulation: no kernel
+    reset_launches()
+    input_bytes = int(np.prod(x.shape[1:])) * 4
+    gpu = PLATFORMS["server-gpu"]
+    analytic = AnalyticCost(model, params, input_bytes, edge=gpu, server=gpu, batch=CAL_BATCH)
+    stack = CostStack([table, analytic])
+    priced = {}
+    for name in CAL_PRICED + (CAL_LEFT_OUT,):
+        cut = names[name]
+        sc = Scenario("SC", SplitPlan(cut), edge=gpu, server=gpu)
+        tcp = NetworkConfig("tcp", Channel(**SIM_CHANNEL))
+        flow = measure_flow(sc, tcp, model, params, input_bytes, SIM_FRAMES, cost=stack,
+                            batch=CAL_BATCH)
+        want = "analytic" if name == CAL_LEFT_OUT else "measured"
+        if flow["cost_source"] != want:
+            raise AssertionError(f"Z14 SC@{name}: cost_source {flow['cost_source']}, want {want}")
+        model_t = analytic.flow_times("SC", cut)
+        row = {"cost_source": flow["cost_source"], "edge_ms": 1e3 * flow["edge_s"],
+               "server_ms": 1e3 * flow["server_s"], "wire_bytes": flow["wire_bytes"],
+               "analytic_edge_ms": 1e3 * model_t["edge_s"],
+               "analytic_server_ms": 1e3 * model_t["server_s"],
+               "analytic_wire_bytes": model_t["wire_bytes"]}
+        if name != CAL_LEFT_OUT:
+            ae = aes.get(cut)
+            for p in SIM_CAL_LOSSES:
+                net = NetworkConfig("tcp", Channel(loss_rate=p, **SIM_CHANNEL))
+                flow = measure_flow(sc, net, model, params, input_bytes, SIM_FRAMES,
+                                    cost=stack, batch=CAL_BATCH)
+                v = ApplicationSimulator(model, params, net, ae=ae, device="cuda").simulate(
+                    sc, xs, ys, flow=flow)
+                row[f"verdict_loss_{p}"] = {"latency_ms": 1e3 * v.latency_s,
+                                            "agreement": v.accuracy,
+                                            "mean_tx": v.meta["mean_tx"]}
+        priced[f"SC@{name}"] = row
+    out["priced"] = priced
+    rc = analytic.flow_times("RC")
+    out["analytic_unsplit_ms"] = 1e3 * rc["server_s"]
+    hil = HILPlatform("card")
+    with torch.inference_mode():
+        out["hil_unsplit_ms"] = 1e3 * hil.measure("unsplit", lambda v: model.apply(params, v),
+                                                  xt, iters=CAL_ITERS)
+    out["lc_head_ms"] = 1e3 * table.lookup("LC").head_s
+    check_launches("Z14 pricing and simulation", launch_counts(), {})
     return out
 
 
@@ -1290,7 +1509,16 @@ def main() -> int:
     print("Z12 finetune", json.dumps(tuned), flush=True)
     deployed = deploy(model, params, aes)
     print("Z12 deploy", json.dumps(deployed), flush=True)
-    del model, params, params_cpu, aes
+    # Z13, Z14: the simulator and its hardware-in-the-loop calibration, on the
+    # same VGG16 and the AEs Z12 trained
+    t0 = time.perf_counter()
+    xs, ys = simulate_fig4(model, params, params_cpu, aes)
+    print(f"Z13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    hil = calibrate_hil(model, params, aes, xs, ys)
+    print("Z14 calibrate", json.dumps(hil), flush=True)
+    print(f"Z14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    del model, params, params_cpu, aes, xs, ys
     torch.cuda.empty_cache()
 
     # the kernels line: launches from each kernel's main path
@@ -1300,6 +1528,7 @@ def main() -> int:
              "rwkv6_scan": ("Z5 rwkv6-1.6b ServingEngine.run", rwkv["launches"]),
              "mamba_scan": (f"Z8 {JAMBA} ServingEngine.run", jamba["launches"])}
     also = {"Z12 deploy": deployed["launches"],
+            "Z14 calibrate": hil["launches"],
             "Z4 split": llama["split"]["launches"],
             f"Z8 {JAMBA}": jamba["launches"],
             f"Z8 {JAMBA} prefill": jamba["prefill_launches"],

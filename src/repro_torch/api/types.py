@@ -1,8 +1,12 @@
-# Copied from src/repro/api/types.py:35-244 (SplitCandidate, legal_split_candidates,
-# legal_cut_list_candidates), with ``SplitCandidate.scenario`` left out until
-# core/scenarios.py is ported (ROADMAP A11); the cost layer (:245 on) waits too.
+# Copied from src/repro/api/types.py:35-356 (SplitCandidate, legal_split_candidates,
+# legal_cut_list_candidates and the cost layer).
 """The design-point type of the split search: one LC / RC / SC candidate,
-carried from the CS curve to a ``SplitPlan``.
+carried from the CS curve to a ``SplitPlan``, and the cost layer every
+cost source implements: :class:`CostModel` (the protocol),
+:class:`AnalyticCost` (FLOPs / effective-throughput model),
+``runtime.calibrate.CalibrationTable`` (measured) and :class:`CostStack`
+(first-match composition).  ``netsim.simulator.measure_flow`` consumes any
+of them through the same two methods.
 
 Split legality has one authority, ``core.split.validate_cuts``;
 :meth:`SplitCandidate.validate` and :func:`legal_split_candidates` route
@@ -12,7 +16,7 @@ methods): ``core.qos`` imports this module at import time.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Sequence
+from typing import Optional, Protocol, Sequence, runtime_checkable
 
 
 @dataclass(frozen=True, eq=False)
@@ -132,6 +136,13 @@ class SplitCandidate:
         return SplitPlan(self.split_layer, self.compression,
                          self.wire_dtype_bytes, splits=self.splits)
 
+    def scenario(self, edge=None, server=None):
+        """The ``core.scenarios.Scenario`` this candidate simulates as."""
+        from repro_torch.core.scenarios import PLATFORMS, Scenario
+        return Scenario(self.kind, self.plan(),
+                        edge=edge or PLATFORMS["edge-embedded"],
+                        server=server or PLATFORMS["server-gpu"])
+
     def validate(self, model) -> "SplitCandidate":
         """Legality-check the cut list against ``model`` (SC only; no-op
         for LC/RC).  Routes through ``core.split.validate_cuts`` — the
@@ -216,3 +227,117 @@ def legal_cut_list_candidates(model, n_cuts: int, cs_curve=None,
         if all(covered(c) for c in combo)]
     out.sort(key=lambda c: -c.accuracy_proxy)
     return out[:top_m] if top_m else out
+
+
+# ------------------------------------------------------------ cost layer ----
+@runtime_checkable
+class CostModel(Protocol):
+    """What every cost source looks like to the simulators.
+
+    ``flow_times(kind, split, batch)`` prices one frame-batch of a flow:
+    a dict with ``edge_s`` / ``server_s`` / ``wire_bytes`` /
+    ``cost_source`` keys, or ``None`` when this source cannot price the
+    cell (callers fall through to the next source).  ``server_cost``
+    yields the per-replica batched service-time model
+    (``serving.engine.BatchCostModel``) for the server-side stage, or
+    ``None``.  Implementations: :class:`AnalyticCost` (FLOPs model),
+    ``runtime.calibrate.CalibrationTable`` (measured),
+    :class:`CostStack` (composition).
+    """
+    batch: int
+
+    def flow_times(self, kind: str, split: Optional[int] = None,
+                   batch: Optional[int] = None) -> Optional[dict]: ...
+
+    def server_cost(self, split: Optional[int], platform): ...
+
+
+def scale_flow_times(times: dict, src_batch: int, batch: int) -> dict:
+    """First-order rescale of a flow-times dict quoted at ``src_batch``
+    to ``batch`` frames (linear model; re-measure at the serving batch
+    for exact numbers)."""
+    if not src_batch or src_batch == batch:
+        return times
+    s = batch / src_batch
+    return {**times,
+            "edge_s": times["edge_s"] * s,
+            "server_s": times["server_s"] * s,
+            "wire_bytes": int(round(times["wire_bytes"] * s))}
+
+
+@dataclass
+class AnalyticCost:
+    """The FLOPs / effective-throughput cost model behind one interface.
+
+    Wraps ``core.scenarios.scenario_times_and_payload`` (and
+    ``serving.engine.BatchCostModel.for_split``) so the analytic path is
+    a :class:`CostModel` like any other.  ``sample`` is an optional
+    example input (array or pytree, e.g. a transformer batch dict) used
+    to derive activation shapes and FLOPs for models whose
+    ``input_shape`` alone cannot describe the input.
+    """
+    model: object
+    params: object
+    input_bytes: int
+    edge: object = None              # PlatformProfile; defaults in __post_init__
+    server: object = None
+    batch: int = 1
+    compression: float = 0.5
+    wire_dtype_bytes: int = 4
+    sample: object = None
+
+    def __post_init__(self):
+        from repro_torch.core.scenarios import PLATFORMS
+        if self.edge is None:
+            self.edge = PLATFORMS["edge-embedded"]
+        if self.server is None:
+            self.server = PLATFORMS["server-gpu"]
+
+    def flow_times(self, kind: str, split: Optional[int] = None,
+                   batch: Optional[int] = None) -> Optional[dict]:
+        from repro_torch.core.scenarios import Scenario, scenario_times_and_payload
+        from repro_torch.core.split import SplitPlan
+        plan = (SplitPlan(split, self.compression, self.wire_dtype_bytes)
+                if kind == "SC" else None)
+        scenario = Scenario(kind, plan, edge=self.edge, server=self.server)
+        times = dict(scenario_times_and_payload(
+            scenario, self.model, self.params, input_bytes=self.input_bytes,
+            batch=self.batch, sample=self.sample), cost_source="analytic")
+        return scale_flow_times(times, self.batch,
+                                self.batch if batch is None else batch)
+
+    def server_cost(self, split: Optional[int], platform):
+        from repro_torch.serving.engine import BatchCostModel
+        return BatchCostModel.for_split(self.model, self.params, split,
+                                        platform, sample=self.sample)
+
+
+@dataclass
+class CostStack:
+    """First-match composition of :class:`CostModel` sources.
+
+    ``CostStack([table, analytic])`` prices a cell from the calibration
+    table when it covers it and falls back to the analytic model
+    otherwise — the uniform selection rule the Study facade uses for
+    ``simulate(...)`` after an optional ``calibrate()``.
+    """
+    sources: list
+
+    @property
+    def batch(self) -> int:
+        return self.sources[0].batch if self.sources else 1
+
+    def flow_times(self, kind: str, split: Optional[int] = None,
+                   batch: Optional[int] = None) -> Optional[dict]:
+        for src in self.sources:
+            times = src.flow_times(kind, split, batch=batch)
+            if times is not None:
+                return times
+        return None
+
+    def server_cost(self, split: Optional[int], platform):
+        for src in self.sources:
+            cost = src.server_cost(split, platform)
+            if cost is not None:
+                return cost
+        return None

@@ -1,10 +1,10 @@
 """Batched serving engine: prefill + greedy decode over the zoo's
-``serve_step`` (twin of ``repro/serving/engine.py:20-121``; its
-``BatchCostModel`` waits for ROADMAP A10)."""
+``serve_step``, and the per-replica service-time model of the server
+stage (twin of ``repro/serving/engine.py``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -12,6 +12,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
+from repro_torch.tree import tree_leaves
 
 
 @dataclass
@@ -20,6 +21,62 @@ class Request:
     prompt: np.ndarray               # (S,) int32
     max_new: int = 16
     out: List[int] = field(default_factory=list)
+
+
+@dataclass(frozen=True)
+class BatchCostModel:
+    """Analytic per-replica service-time model of the static-batch engine.
+
+    One batch pays a fixed dispatch/prefill overhead, then per-item FLOPs at
+    the platform's effective throughput — batching amortises the overhead,
+    which is what a fleet's dynamic batching window exploits.
+    """
+    flops_per_item: float            # server-side FLOPs of one request
+    flops_per_s: float               # replica effective throughput
+    fixed_overhead_s: float = 2e-4   # dispatch + prefill per batch
+
+    def service_time(self, batch_size: int) -> float:
+        assert batch_size >= 1
+        return (self.fixed_overhead_s
+                + batch_size * self.flops_per_item / self.flops_per_s)
+
+    def throughput(self, batch_size: int) -> float:
+        """Requests/s one replica sustains at that batch size."""
+        return batch_size / self.service_time(batch_size)
+
+    @classmethod
+    def for_split(cls, model, params, split_layer: Optional[int],
+                  platform, *, fixed_overhead_s: float = 2e-4,
+                  sample=None) -> "BatchCostModel":
+        """Server-side cost of one request for a cut after ``split_layer``
+        (``None`` = the server runs the whole model, i.e. scenario RC).
+
+        ``sample``: example input (a tensor or a batch dict) for models whose
+        ``input_shape`` cannot describe the input; FLOPs counted at its
+        batch are normalised back to one request.
+        """
+        from repro_torch.core import stats as S
+        n = 1
+        if sample is not None:
+            n = int(tree_leaves(sample)[0].shape[0])
+        if split_layer is None:
+            flops = S.total_flops(model, params, batch=1, sample=sample)
+        else:
+            _, flops = S.flops_split(model, params, split_layer, batch=1,
+                                     sample=sample)
+        return cls(float(flops) / n, platform.flops_per_s,
+                   fixed_overhead_s=fixed_overhead_s)
+
+    @classmethod
+    def from_measured(cls, seconds_per_item: float, flops_per_s: float, *,
+                      fixed_overhead_s: float = 2e-4) -> "BatchCostModel":
+        """Cost model anchored to a *measured* per-item service time
+        (hardware-in-the-loop: the wall clock of the executed tail stage,
+        see ``repro_torch.runtime.calibrate``).  ``flops_per_item`` is
+        back-derived so FLOPs-rate reporting stays meaningful."""
+        assert seconds_per_item > 0
+        return cls(seconds_per_item * flops_per_s, flops_per_s,
+                   fixed_overhead_s=fixed_overhead_s)
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:

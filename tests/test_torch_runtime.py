@@ -16,6 +16,8 @@ from repro_torch.netsim.channel import Channel as TChannel  # noqa: E402
 from repro_torch.params import ae_from_numpy, vgg_params_from_numpy  # noqa: E402
 from repro_torch.runtime import engine as TE  # noqa: E402
 from repro_torch.runtime import wire as TW  # noqa: E402
+from repro_torch.netsim.simulator import ApplicationSimulator, NetworkConfig  # noqa: E402
+from repro_torch.runtime.calibrate import calibrate  # noqa: E402
 from repro_torch.runtime.partition import make_partition  # noqa: E402
 from repro.netsim.channel import Channel as JChannel  # noqa: E402
 
@@ -161,12 +163,15 @@ def _entry_points(tm, tp, taes):
         "ae_from_numpy": lambda: ae_from_numpy(
             {p: {k: v.numpy() for k, v in d.items()} for p, d in taes[9].items()}),
         "init_bottleneck": lambda: TB.init_bottleneck(0, (4, 4, 16)),
+        "ApplicationSimulator": lambda: ApplicationSimulator(
+            tm, tp, NetworkConfig("tcp", TChannel(1e-4, 1e9, 1e9))),
+        "calibrate": lambda: calibrate(tm, tp, [9]),
     }
 
 
 @pytest.mark.parametrize("name", ["SplitRuntime", "TailServer", "run_clients", "Partition",
                                   "init", "vgg_params_from_numpy", "ae_from_numpy",
-                                  "init_bottleneck"])
+                                  "init_bottleneck", "ApplicationSimulator", "calibrate"])
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(setup, name):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is usable")

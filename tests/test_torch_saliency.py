@@ -46,6 +46,17 @@ CS_ATOL = 1e-5
 RESIZE_RTOL = 1e-6
 
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread in this module: its tensors are
+    small, and the tier-1 run keeps six test processes busy on the host's
+    cores at once, where an op's thread pool mostly waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 def he_normal_like(shapes, seed):
     """Weights for a reference params tree of ``ShapeDtypeStruct``s, drawn
     with numpy, without compiling a JAX init: normal with std
@@ -154,11 +165,24 @@ def test_apply_with_taps_matches_the_reference(case):
     assert torch.equal(tm.apply_with_taps(tp, tx, [torch.zeros_like(a) for a in acts]), logits)
 
 
+@functools.lru_cache(maxsize=None)
+def _vgg_curves(seed):
+    """The reference's and the port's CS curves of the small VGG on toy
+    batch ``seed``, each computed once in the module."""
+    jm, jp, tm, tp, idx, batch = _vgg_case()
+    (jx, jy), (tx, ty) = batch(seed)
+    return (JSAL.cumulative_saliency(jm, jp, jx, jy, layer_idx=idx),
+            TSAL.cumulative_saliency(tm, tp, tx, ty, layer_idx=idx))
+
+
 def test_cs_curve_matches_the_reference(case):
     jm, jp, tm, tp, idx, batch = case
     (jx, jy), (tx, ty) = batch(0)
-    want = JSAL.cumulative_saliency(jm, jp, jx, jy, layer_idx=idx)
-    got = TSAL.cumulative_saliency(tm, tp, tx, ty, layer_idx=idx)
+    if tm.name == "vgg_cifar":
+        want, got = _vgg_curves(0)
+    else:
+        want = JSAL.cumulative_saliency(jm, jp, jx, jy, layer_idx=idx)
+        got = TSAL.cumulative_saliency(tm, tp, tx, ty, layer_idx=idx)
     assert got.dtype == np.float64 and got.shape == (len(idx),)
     np.testing.assert_allclose(got, want, rtol=0, atol=CS_ATOL)
 
@@ -221,9 +245,7 @@ def test_fallback_ranking_is_identical_on_the_monotone_curve():
     """Where the reference's curve has no interior peak, both fall back to
     the highest-CS legal cuts; the port's curve ranks the same."""
     jm, jp, tm, tp, idx, batch = _vgg_case()
-    (jx, jy), (tx, ty) = batch(PEAK_FREE_BATCH)
-    jcs = JSAL.cumulative_saliency(jm, jp, jx, jy, layer_idx=idx)
-    tcs = TSAL.cumulative_saliency(tm, tp, tx, ty, layer_idx=idx)
+    jcs, tcs = _vgg_curves(PEAK_FREE_BATCH)
     assert JSAL.local_maxima(jcs) == [] == TSAL.local_maxima(tcs)
     want = _ranking(JSAL, JTY, JQ, jm, jcs, idx)
     got = _ranking(TSAL, TTY, TQ, tm, tcs, idx)
@@ -238,9 +260,7 @@ def test_peak_ranking_is_identical_on_a_curve_with_a_peak():
     """Where the reference's curve has an interior peak, both rank from
     the peaks."""
     jm, jp, tm, tp, idx, batch = _vgg_case()
-    (jx, jy), (tx, ty) = batch(PEAKED_BATCH)
-    jcs = JSAL.cumulative_saliency(jm, jp, jx, jy, layer_idx=idx)
-    tcs = TSAL.cumulative_saliency(tm, tp, tx, ty, layer_idx=idx)
+    jcs, tcs = _vgg_curves(PEAKED_BATCH)
     assert TSAL.local_maxima(tcs) == JSAL.local_maxima(jcs) != []
     want = _ranking(JSAL, JTY, JQ, jm, jcs, idx)
     got = _ranking(TSAL, TTY, TQ, tm, tcs, idx)
@@ -255,11 +275,25 @@ RESIZES = [((7, 7), (14, 14)), ((14, 14), (224, 224)), ((28, 28), (224, 224)),
            ((5,), (17,)), ((), (16, 16)), ((16, 16), (16, 16))]
 
 
+def _resize_input(src):
+    return (1.5 * np.random.default_rng(len(src) + sum(src)).standard_normal((3,) + src)
+            ).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_resized():
+    """The reference's ``_resize_to`` of every case, in one jitted call:
+    one compile for the module, where run op by op each case compiles its
+    primitives anew."""
+    fn = jax.jit(lambda ms: [JSAL._resize_to(m, dst) for m, (_, dst) in zip(ms, RESIZES)])
+    out = fn([jnp.asarray(_resize_input(src)) for src, _ in RESIZES])
+    return {case: np.asarray(o) for case, o in zip(RESIZES, out)}
+
+
 @pytest.mark.parametrize("src,dst", RESIZES)
-def test_resize_matches_jax_image_resize(src, dst):
-    m = (1.5 * np.random.default_rng(len(src) + sum(src)).standard_normal((3,) + src)
-         ).astype(np.float32)
-    want = np.asarray(JSAL._resize_to(jnp.asarray(m), dst))
+def test_resize_matches_jax_image_resize(src, dst, jax_resized):
+    m = _resize_input(src)
+    want = jax_resized[(src, dst)]
     got = TSAL._resize_to(torch.from_numpy(m), dst).numpy()
     assert got.shape == want.shape == (3,) + dst
     assert np.abs(got - want).max() <= RESIZE_RTOL * np.abs(want).max()

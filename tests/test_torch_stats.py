@@ -39,6 +39,37 @@ CASES = ["vgg_small", "vgg16", "llama3.2-3b", "rwkv6-1.6b"]
 VGG_CASES = CASES[:2]
 
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread in this module: its tensors are
+    small, and the tier-1 run keeps six test processes busy on the host's
+    cores at once, where an op's thread pool mostly waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+def _shapes_memo(model):
+    """``model.activation_shapes`` remembered on the instance by batch and
+    sample shapes.  The payload checks ask each model for the same shapes
+    once a cut, and each ask is a trace (the reference's
+    ``jax.eval_shape``) or a forward (a view's sample); the shapes
+    themselves are held equal by ``test_summary_rows_equal_the_reference``
+    and ``test_transformer_views_count_what_the_reference_counts``."""
+    plain, memo = model.activation_shapes, {}
+
+    def shapes(params, batch=1, *, sample=None):
+        key = (batch, None if sample is None else
+               tuple((k, tuple(v.shape)) for k, v in sorted(sample.items())))
+        if key not in memo:
+            memo[key] = plain(params, batch, sample=sample)
+        return memo[key]
+    model.activation_shapes = shapes
+    return model
+
+
+@functools.lru_cache(maxsize=None)
 def _vgg_small():
     """The small VGG: the reference's params as ``ShapeDtypeStruct``s, the
     port's from its own init."""
@@ -48,6 +79,7 @@ def _vgg_small():
             {}, {})
 
 
+@functools.lru_cache(maxsize=None)
 def _vgg16():
     """Full VGG16 on both sides without weights: the reference's params as
     ``ShapeDtypeStruct``s, the port's as ``meta`` tensors (conv OIHW)."""
@@ -97,8 +129,9 @@ def _view(arch):
 @pytest.fixture(scope="module", params=CASES)
 def case(request):
     """(JAX model, JAX params, port model, port params, JAX kwargs, port kwargs)."""
-    return {"vgg_small": _vgg_small, "vgg16": _vgg16}.get(
+    jm, jp, tm, tp, jkw, tkw = {"vgg_small": _vgg_small, "vgg16": _vgg16}.get(
         request.param, functools.partial(_view, request.param))()
+    return _shapes_memo(jm), jp, _shapes_memo(tm), tp, jkw, tkw
 
 
 def _rows(rows):

@@ -40,6 +40,17 @@ FINETUNE_RTOL = 1e-4
 SPLITS = [3, 6]          # relu3 and pool6 of the small VGG: (8, 8, 8) and (4, 4, 16)
 
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread in this module: its tensors are
+    small, and the tier-1 run keeps six test processes busy on the host's
+    cores at once, where an op's thread pool mostly waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 def he_normal_like(shapes, seed):
     """Weights for a reference params tree of ``ShapeDtypeStruct``s, drawn
     with numpy, without compiling a JAX init: normal with std
@@ -63,12 +74,19 @@ def pair():
     return jm, jp, tm, vgg_params_from_numpy(tm, jax.tree.map(np.asarray, jp), device="cpu")
 
 
+_REF_AES = {}
+
+
 def _ref_ae(jm, jp, split, seed=0, rate=0.5):
     """The AE the reference's ``train_bottleneck`` starts from: sized by the
-    first batch of its iterator, drawn from ``PRNGKey(seed)``."""
-    x0, _ = next(JD.toy_image_iter(8, hw=16, seed=0))
-    f0 = jax.eval_shape(lambda x: jm.apply_range(jp, x, 0, split + 1), jnp.asarray(x0))
-    return JB.init_bottleneck(jax.random.PRNGKey(seed), f0.shape[1:], rate)
+    first batch of its iterator, drawn from ``PRNGKey(seed)``; drawn once a
+    module for each model and cut (its draw compiles op by op)."""
+    key = (id(jp), split, seed, rate)
+    if key not in _REF_AES:
+        x0, _ = next(JD.toy_image_iter(8, hw=16, seed=0))
+        f0 = jax.eval_shape(lambda x: jm.apply_range(jp, x, 0, split + 1), jnp.asarray(x0))
+        _REF_AES[key] = JB.init_bottleneck(jax.random.PRNGKey(seed), f0.shape[1:], rate)
+    return _REF_AES[key]
 
 
 def _close(got, want, rtol, what):
@@ -107,24 +125,38 @@ def test_ae_loss_matches_the_reference(pair):
     jm, jp, _, _ = pair
     jae = _ref_ae(jm, jp, 6)
     feats = np.random.default_rng(1).standard_normal((8, 4, 4, 16)).astype(np.float32)
-    want = float(jax.jit(JB.ae_loss)(jae, jnp.asarray(feats)))
+    loss, recon = jax.jit(lambda a, f: (JB.ae_loss(a, f), JB.reconstruct(a, f)))(
+        jae, jnp.asarray(feats))
+    want = float(loss)
     got = float(TB.ae_loss(ae_from_numpy(jax.tree.map(np.asarray, jae), device="cpu"),
                            torch.from_numpy(feats)))
     assert abs(got - want) <= LOSS_RTOL * abs(want)
     _close(TB.reconstruct(ae_from_numpy(jax.tree.map(np.asarray, jae), device="cpu"),
-                          torch.from_numpy(feats)).numpy(),
-           jax.jit(JB.reconstruct)(jae, jnp.asarray(feats)), LOSS_RTOL, "reconstruct")
+                          torch.from_numpy(feats)).numpy(), recon, LOSS_RTOL, "reconstruct")
+
+
+@pytest.fixture(scope="module")
+def ref_task_losses(pair):
+    """The reference's ``task_loss`` of every case below on toy batch 3, in
+    one jitted call: one compile, where a jit a case compiles four."""
+    jm, jp, _, _ = pair
+    jae = _ref_ae(jm, jp, 6)
+    x, y = JD.toy_images(8, hw=16, seed=3)
+    losses = jax.jit(lambda p, a, x, y: {
+        (kind, with_ae): JB.task_loss(jm, p, a if with_ae else None, 6, x, y, kind)
+        for kind in ("mse", "ce") for with_ae in (True, False)})(
+        jp, jae, jnp.asarray(x), jnp.asarray(y))
+    return {k: float(v) for k, v in losses.items()}
 
 
 @pytest.mark.parametrize("kind", ["mse", "ce"])
 @pytest.mark.parametrize("with_ae", [True, False])
-def test_task_loss_matches_the_reference(pair, kind, with_ae):
+def test_task_loss_matches_the_reference(pair, ref_task_losses, kind, with_ae):
     jm, jp, tm, tp = pair
     jae = _ref_ae(jm, jp, 6) if with_ae else None
     tae = ae_from_numpy(jax.tree.map(np.asarray, jae), device="cpu") if with_ae else None
     x, y = JD.toy_images(8, hw=16, seed=3)
-    want = float(jax.jit(lambda p, a, x, y: JB.task_loss(jm, p, a, 6, x, y, kind))(
-        jp, jae, jnp.asarray(x), jnp.asarray(y)))
+    want = ref_task_losses[(kind, with_ae)]
     got = float(TB.task_loss(tm, tp, tae, 6, torch.from_numpy(x), torch.from_numpy(y), kind))
     assert abs(got - want) <= LOSS_RTOL * abs(want)
 
