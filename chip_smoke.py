@@ -35,7 +35,8 @@ no install: it puts ``src/`` on the path itself).  Phases:
    through ``ServingEngine`` on 4 ragged prompts, 16 new tokens each, hold
    each step's logits against a full forward over the same tokens, then cut
    it after layer 14 with an AE and the int8 wire through
-   ``transformer_as_layered``;
+   ``transformer_as_layered``, and time the view's Table I
+   (``stats.summary`` with the served tokens as its sample) cold and cached;
 9. (Z5) serve full-width, full-depth rwkv6-1.6b the same way; then both
    served runs again in f32, held to the f32 bar;
 10. (Z6) for each model, a full-width depth-2 f32 copy through the kernels
@@ -74,19 +75,36 @@ no install: it puts ``src/`` on the path itself).  Phases:
     length, its measured cells priced through ``measure_flow`` beside the
     analytic ``server-gpu`` profile, fed to the simulator, and
     ``HILPlatform.measure`` of the unsplit forward;
-17. print the kernels' launch counts with their errors, times and bounds as
+17. (Z15) fault recovery in the split runtime (``SplitRuntime(faults=,
+    recovery=)``, a twin of ``benchmarks/bench_faults.py``) at both trained
+    AE cuts, 16 requests at batch 1: with no faults the SEI1 frames byte for
+    byte and fused logits equal to eager; under the chaos plan every request
+    answered, the ones not degraded bit for bit the fault-free run's, the
+    degraded ones within their rung's bar, and every request's fates equal
+    to a CPU run of the same plan; under a blackout every request on the
+    local fallback; then a 4-slot ``TailServer(faults=)`` that rejects
+    corrupted frames and serves nothing inside a blackout window;
+18. (Z16) the fleet layers (twins of ``examples/fleet_planning.py`` and
+    ``examples/adaptive_replanning.py``): ``DeploymentPlanner`` over three
+    device classes and a 1000-request diurnal trace, its accuracy legs on the
+    card over Z13's images, its server stage priced by Z14's table; the event
+    and vectorized cluster engines held together on the suggested plans, the
+    card's plan points to a CPU planner's over 2 images, and
+    ``AdaptiveController.from_planner`` deciding the same under both engines;
+19. print the kernels' launch counts with their errors, times and bounds as
     one JSON line, then ``{"ok": true, "device": ...}``.
 
 Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z11, Z12's training and its
-deploy, Z13, Z14) runs with the launch counts set to 0 just before it and
-read just after; a served run's prefill and decode are counted apart as
-well, and ``flash_attention``'s launches by route (``wgmma_bf16`` for a bf16
-model, ``simt_f32`` for an f32 one).  Z11, Z12's training and Z13 launch no
-kernel (a wrapper refuses an input that requires grad; the simulator runs
-the plain f32 forward); Z14 launches each codec kernel a number of times
-worked out from ``calibrate``'s code.  Any failed check raises, so
-the script exits non-zero and prints no result.  It exits non-zero as well
-where CUDA is not available.
+deploy, Z13, Z14, each part of Z15, Z16) runs with the launch counts set to 0
+just before it and read just after; a served run's prefill and decode are
+counted apart as well, and ``flash_attention``'s launches by route
+(``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32 one).  Z11, Z12's
+training, Z13 and Z16 launch no kernel (a wrapper refuses an input that
+requires grad; the simulator runs the plain f32 forward); Z14 and Z15 launch
+each codec kernel a number of times worked out from the code (Z15: from the
+rungs each request took).  Any failed check raises, so the script exits
+non-zero and prints no result.  It exits non-zero as well where CUDA is not
+available.
 """
 from __future__ import annotations
 
@@ -129,12 +147,19 @@ from repro_torch.data.synthetic import toy_image_iter, toy_images  # noqa: E402
 from repro_torch.models.vgg import feature_index, vgg16  # noqa: E402
 from repro_torch.training.optimizer import adam_init, adam_update  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
-from repro_torch.netsim.channel import Channel  # noqa: E402
+from repro_torch.core.qos import QoSRequirements  # noqa: E402
+from repro_torch.fleet import (PCTL_RTOL, AdaptiveController, ControllerConfig,  # noqa: E402
+                               DeploymentPlanner, DeviceClass, Phase, RegimeChangeTrace,
+                               SearchSpace, generate_trace, simulate_deployment)
+from repro_torch.fleet.vectorized import PCTL_ATOL  # noqa: E402
+from repro_torch.netsim.channel import INTERFACES, Channel  # noqa: E402
 from repro_torch.netsim.simulator import (ApplicationSimulator, NetworkConfig,  # noqa: E402
                                           measure_flow)
 from repro_torch.runtime import wire as W  # noqa: E402
 from repro_torch.runtime.calibrate import CalibrationTable, calibrate  # noqa: E402
-from repro_torch.runtime.engine import SplitRuntime, run_clients  # noqa: E402
+from repro_torch.runtime.engine import SplitRuntime, TailServer, run_clients  # noqa: E402
+from repro_torch.runtime.faults import FaultPlan, RecoveryPolicy  # noqa: E402
+from repro_torch.runtime.partition import make_partition  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 off the tensor cores,
@@ -299,6 +324,51 @@ SIM_CAL_LOSSES = (0.0, 0.1)
 # the eager decode and in the fused server leg, each a warm-up and CAL_ITERS
 # timed calls (runtime/calibrate.py, runtime/engine.timeit_blocked)
 CAL_CODEC_LAUNCHES_PER_AE_CUT = 2 * (1 + CAL_ITERS)
+# Z15: fault recovery in the split runtime, a twin of
+# benchmarks/bench_faults.py:69-160 at full width: its requests (batch 1,
+# numpy seed 0), channel, chaos plan and policy, blackout plan and policy;
+# each infer times every leg once after a warm-up (iters=1), as the bench does
+FAULT_REQUESTS, FAULT_ITERS = 16, 1
+FAULT_CHANNEL = {"latency_s": 2e-3, "capacity_bps": 50e6, "interface_bps": 100e6, "seed": 0}
+CHAOS_PLAN = {"seed": 7, "drop_rate": 0.35, "corrupt_rate": 0.25, "straggle_rate": 0.1,
+              "straggle_s": 0.01}
+CHAOS_POLICY = {"max_attempts": 6, "deadline_s": 5.0, "downgrade_after": 2}
+BLACKOUT_PLAN = {"seed": 1, "blackouts": ((0.0, 1e9),)}
+BLACKOUT_POLICY = {"max_attempts": 3}
+# a degraded request's logits against the unsplit forward, relative to max
+# |logit|: the int8 rung quantises the raw activation per row (no kernel), a
+# code step of 1/127 of the row's max; the f32 rung and the local fallback
+# carry the activation exactly
+RUNG_RTOL = {"int8": LOGIT_RTOL, "f32": 1e-5, "local": 1e-5}
+# the 4-slot tail server at the pool23 cut: 8 clients, the frames of the
+# clients in SERVER_CORRUPT corrupted, steps at SERVER_STEPS_AT on the
+# virtual clock against SERVER_BLACKOUT
+SERVER_CLIENTS, SERVER_CORRUPT = 8, (2, 5)
+SERVER_BLACKOUT = ((1.0, 2.0),)
+SERVER_STEPS_AT = (1.2, 1.9, 2.0, 2.5, 3.0)
+# Z16: the fleet layers, twins of examples/fleet_planning.py (its three
+# device classes, its 1000-request diurnal trace at 400 req/s, its search
+# grid and QoS) and examples/adaptive_replanning.py (its --quick phases and
+# controller config), on phase 4's VGG16 with Z12's AEs, Z13's 64 images and
+# Z14's calibration table as the cost model
+FLEET_MIX = (("mcu", {"latency_s": 2e-3, "capacity_bps": 10e6, "interface_bps": 10e6,
+                      "loss_rate": 0.08, "seed": 1}, 2.0),
+             ("edge-embedded", {"latency_s": 5e-4, "capacity_bps": INTERFACES["fast-ethernet"],
+                                "interface_bps": INTERFACES["fast-ethernet"], "loss_rate": 0.02,
+                                "seed": 2}, 1.5),
+             ("edge-accelerator", {"latency_s": 1e-4, "capacity_bps": INTERFACES["gigabit"],
+                                   "interface_bps": INTERFACES["gigabit"], "seed": 3}, 1.0))
+FLEET_REQUESTS, FLEET_RATE_HZ, FLEET_SEED = 1000, 400.0, 42
+FLEET_QOS = {"max_latency_s": 0.05, "min_accuracy": 0.5}
+FLEET_FRAMES = 8
+# hold (b): the card's plan points against a CPU planner's, both over the
+# first FLEET_HOLD_IMAGES images: latencies and rates to 1e-9 relative (the
+# same numpy arithmetic from the same cost table; accuracy on the same argmax)
+FLEET_HOLD_IMAGES, FLEET_REL = 2, 1e-9
+RUSH_PHASES = ((1.0, 20000.0), (4.0, 1500.0))
+RUSH_CHANNEL = {"latency_s": 1e-4, "capacity_bps": 100e6, "interface_bps": 100e6, "seed": 1}
+RUSH_CONFIG = {"control_period_s": 0.25, "drift_threshold": 0.3, "min_improvement": 0.05,
+               "warmup_s": 0.02, "max_switches": 4}
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS, exps: float = 0) -> tuple:
@@ -845,7 +915,7 @@ def simulate_fig4(model, params, params_cpu, aes) -> tuple:
     return xs, ys
 
 
-def calibrate_hil(model, params, aes, xs, ys) -> dict:
+def calibrate_hil(model, params, aes, xs, ys) -> tuple:
     """Z14: ``calibrate`` (fused) at CAL_BATCH over CAL_CUTS, the trained AEs
     at their cuts; the codec kernels' launches held to the count worked out
     from the code, every time finite and positive, each cut's frame length,
@@ -853,7 +923,8 @@ def calibrate_hil(model, params, aes, xs, ys) -> dict:
     ``measure_flow`` with a CostStack over the analytic model (held
     "measured", and "analytic" at CAL_LEFT_OUT), printed against the
     analytic ``server-gpu`` profile, fed to the simulator over TCP; and
-    ``HILPlatform.measure`` of the unsplit forward beside the LC entry."""
+    ``HILPlatform.measure`` of the unsplit forward beside the LC entry.
+    Returns (what it measured, the table)."""
     names = {layer.name: i for i, layer in enumerate(model.layers)}
     cuts = [names[n] for n in CAL_CUTS]
     ae_map = {c: ae for c, ae in aes.items() if c in cuts}
@@ -939,6 +1010,327 @@ def calibrate_hil(model, params, aes, xs, ys) -> dict:
                                                   xt, iters=CAL_ITERS)
     out["lc_head_ms"] = 1e3 * table.lookup("LC").head_s
     check_launches("Z14 pricing and simulation", launch_counts(), {})
+    return out, table
+
+
+def fates(r) -> dict:
+    """What the fault plan and the policy decided for one request: pure
+    functions of (seed, rid, hop, attempt) and the channel, which a CPU run
+    of the same plan must repeat."""
+    rec = r.meta["recovery"]
+    return {"faults": rec["faults"], "retries": rec["retries"], "timeouts": rec["timeouts"],
+            "backoff_s": rec["backoff_s"], "downgrades": rec["downgrades"],
+            "local_fallback": rec["local_fallback"],
+            "hops": [(h["attempts"], h["kind"], h["delivered"], h["bytes"]) for h in r.hops]}
+
+
+def deadline_distance(r, deadline_s) -> float:
+    """Seconds between the deadline and the nearest point the request's
+    virtual clock passed through, as its record gives them: the end of its
+    first stage and of each event of its hop.  The engine checks the
+    deadline only at such points, so no check came nearer: a fate the CPU
+    replay must repeat cannot flip by measured seconds smaller than this."""
+    t = r.stage_s[0]
+    points = [t]
+    for _, _, d in r.hops[0]["events"]:
+        t += d
+        points.append(t)
+    return min(abs(deadline_s - p) for p in points)
+
+
+def fault_recovery(model, params, params_cpu, aes) -> dict:
+    """Z15: ``SplitRuntime(faults=, recovery=)`` at each trained AE cut, a
+    twin of benchmarks/bench_faults.py:69-160 at full width.  Holds (a) with
+    ``faults=None`` fused logits equal to eager bit for bit and within
+    LOGIT_RTOL of the same chain through the plain versions (the SEI1 bytes
+    are host code, held against the reference in tests/test_torch_faults.py);
+    (b) under the chaos plan every request
+    answered, each one not degraded bit for bit the fault-free run's, each
+    degraded one within its rung's bar of the unsplit forward, and every
+    request's fates equal to a CPU run of the port under the same plan (the
+    plan has no blackout, and its 5 s deadline lies far from every point of
+    each request's virtual clock: the least distance is printed); (c) under the blackout plan every
+    request on the local fallback, equal to the unsplit forward; (e) each
+    codec kernel's launches, worked out from the rungs each request took:
+    one encode a request at the ae8 rung and one decode a request delivered
+    there, each a warm-up and FAULT_ITERS timed calls."""
+    rng = np.random.default_rng(0)
+    xs = [rng.standard_normal((1,) + tuple(model.input_shape)).astype(np.float32)
+          for _ in range(FAULT_REQUESTS)]
+    ch = Channel(**FAULT_CHANNEL)
+    n, per = FAULT_REQUESTS, 1 + FAULT_ITERS
+    out = {"requests": n, "channel": FAULT_CHANNEL, "chaos_plan": CHAOS_PLAN,
+           "chaos_policy": CHAOS_POLICY, "cuts": {}, "launches": {}}
+    for cut, ae in aes.items():
+        name = model.layers[cut].name
+        row = {"cut": cut}
+        # (a) zero faults
+        t0 = time.perf_counter()
+        eager = SplitRuntime(model, params, cut, ae=ae, channel=ch, device="cuda")
+        fused = SplitRuntime(model, params, cut, ae=ae, channel=ch, fused=True, device="cuda")
+        torch.cuda.synchronize()
+        reset_launches()
+        clean, rels = [], []
+        for x in xs:
+            r, rf = eager.infer(x, iters=FAULT_ITERS), fused.infer(x, iters=FAULT_ITERS)
+            if "recovery" in r.meta or not np.array_equal(r.logits, rf.logits):
+                raise AssertionError(f"Z15 {name}: zero-fault fused logits differ from eager")
+            plain = plain_chain(model, params, {cut: ae}, torch.from_numpy(x).cuda(),
+                                cuts=(cut,)).cpu().numpy()
+            rels.append(float(np.abs(r.logits - plain).max() / np.abs(plain).max()))
+            if rels[-1] > LOGIT_RTOL:
+                raise AssertionError(f"Z15 {name}: zero-fault logits off the plain chain by "
+                                     f"{rels[-1]} (bar {LOGIT_RTOL})")
+            clean.append(r)
+        out["launches"][f"{name} zero faults"] = launch_counts()
+        check_launches(f"Z15 {name} zero faults", launch_counts(),
+                       {"bottleneck_compress": n * 2 * per,
+                        "bottleneck_decompress": n * 2 * per})
+        row["zero_fault_rel_err_vs_plain"] = max(rels)
+        row["zero_fault_s"] = time.perf_counter() - t0
+        row["frame_bytes"] = clean[0].wire_bytes
+
+        # (b) chaos
+        t0 = time.perf_counter()
+        plan, pol = FaultPlan(**CHAOS_PLAN), RecoveryPolicy(**CHAOS_POLICY)
+        rt = SplitRuntime(model, params, cut, ae=ae, channel=ch, faults=plan, recovery=pol,
+                          device="cuda")
+        torch.cuda.synchronize()
+        reset_launches()
+        chaos = [rt.infer(x, iters=FAULT_ITERS, rid=rid) for rid, x in enumerate(xs)]
+        counts = launch_counts()
+        out["launches"][f"{name} chaos"] = counts
+        delivered_ae8 = sum(h["delivered"] and h["kind"] == "ae8" for r in chaos for h in r.hops)
+        check_launches(f"Z15 {name} chaos", counts,
+                       {"bottleneck_compress": n * per, "bottleneck_decompress": per * delivered_ae8})
+        row["chaos_s"] = time.perf_counter() - t0
+        identical, rungs = 0, {}
+        for rid, (r, c) in enumerate(zip(chaos, clean)):
+            if r.logits.shape != (1, 1000) or not np.isfinite(r.logits).all():
+                raise AssertionError(f"Z15 {name} chaos request {rid}: logits {r.logits.shape}")
+            if not r.meta["degraded"]:
+                if not np.array_equal(r.logits, c.logits):
+                    raise AssertionError(f"Z15 {name} chaos request {rid}: retried, not degraded, "
+                                         "and its logits differ from the fault-free run's")
+                identical += 1
+                continue
+            rung = "local" if r.meta["local_fallback"] else r.hops[0]["kind"]
+            full = rt.reference(xs[rid])
+            rel = float(np.abs(r.logits - full).max() / np.abs(full).max())
+            rungs.setdefault(rung, []).append(rel)
+            if rel > RUNG_RTOL[rung]:
+                raise AssertionError(f"Z15 {name} chaos request {rid}: the {rung} rung's logits "
+                                     f"off the unsplit forward by {rel} (bar {RUNG_RTOL[rung]})")
+        recs = [r.meta["recovery"] for r in chaos]
+        row["chaos"] = {
+            "completion_rate": len(chaos) / n, "identical": identical,
+            "degraded": n - identical, "degraded_rel_err_by_rung": rungs,
+            "faults": {k: sum(rc["faults"][k] for rc in recs) for k in recs[0]["faults"]},
+            "retries": sum(rc["retries"] for rc in recs),
+            "timeouts": sum(rc["timeouts"] for rc in recs),
+            "downgrades": sum(len(rc["downgrades"]) for rc in recs),
+            "local_fallbacks": sum(rc["local_fallback"] for rc in recs),
+            "backoff_s": sum(rc["backoff_s"] for rc in recs),
+            "overhead_ms_per_req": 1e3 * sum(r.total_s - c.total_s
+                                             for r, c in zip(chaos, clean)) / n,
+            "encode_ms": [1e3 * r.encode_s for r in chaos],
+            "decode_ms": [1e3 * r.decode_s for r in chaos],
+            "deadline_distance_s": min(deadline_distance(r, pol.deadline_s) for r in chaos)}
+        # the same plan on the CPU: the same fates, request by request
+        t0 = time.perf_counter()
+        cpu_rt = SplitRuntime(model, params_cpu, cut, ae=to_cpu(ae), channel=ch, faults=plan,
+                              recovery=pol, device="cpu")
+        cpu = [cpu_rt.infer(x, iters=FAULT_ITERS, rid=rid) for rid, x in enumerate(xs)]
+        for rid, (r, c) in enumerate(zip(chaos, cpu)):
+            if fates(r) != fates(c):
+                raise AssertionError(f"Z15 {name} chaos request {rid}: fates {fates(r)} on the "
+                                     f"card, {fates(c)} on the CPU")
+        row["chaos"]["cpu_deadline_distance_s"] = min(deadline_distance(r, pol.deadline_s)
+                                                      for r in cpu)
+        row["cpu_replay_s"] = time.perf_counter() - t0
+
+        # (c) blackout
+        t0 = time.perf_counter()
+        rtb = SplitRuntime(model, params, cut, ae=ae, channel=ch,
+                           faults=FaultPlan(**BLACKOUT_PLAN),
+                           recovery=RecoveryPolicy(**BLACKOUT_POLICY), device="cuda")
+        torch.cuda.synchronize()
+        reset_launches()
+        black = [rtb.infer(x, iters=FAULT_ITERS, rid=rid) for rid, x in enumerate(xs)]
+        out["launches"][f"{name} blackout"] = launch_counts()
+        check_launches(f"Z15 {name} blackout", launch_counts(), {"bottleneck_compress": n * per})
+        rels = []
+        for rid, r in enumerate(black):
+            full = rtb.reference(xs[rid])
+            rels.append(float(np.abs(r.logits - full).max() / np.abs(full).max()))
+            if not r.meta["local_fallback"] or r.hops[0]["delivered"] or rels[-1] > RUNG_RTOL["local"]:
+                raise AssertionError(f"Z15 {name} blackout request {rid}: fell back "
+                                     f"{r.meta['local_fallback']}, off the unsplit forward "
+                                     f"by {rels[-1]}")
+        row["blackout"] = {"fallback_rate": sum(r.meta["local_fallback"] for r in black) / n,
+                           "blackout_timeouts": sum(r.meta["recovery"]["faults"]["blackout"]
+                                                    for r in black),
+                           "max_rel_err_vs_unsplit": max(rels)}
+        row["blackout_s"] = time.perf_counter() - t0
+        out["cuts"][name] = row
+        print(f"Z15 {name}", json.dumps(row), flush=True)
+    return out
+
+
+def tail_server_faults(model, params, cut, ae) -> dict:
+    """Z15 (d): a 4-slot ``TailServer(faults=)`` at ``cut``: SERVER_CLIENTS
+    clients send SEI2 frames, those of SERVER_CORRUPT corrupted past the
+    header; the server rejects and counts them, serves nothing at a step
+    inside SERVER_BLACKOUT, and serves the rest with the logits of a clean
+    server given the accepted frames, bit for bit, each within LOGIT_RTOL of
+    the same chain through the plain versions."""
+    part = make_partition(model, params, cut, ae, device="cuda")
+    plan = FaultPlan(seed=0, blackouts=SERVER_BLACKOUT)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (SERVER_CLIENTS, 1) + tuple(model.input_shape)).astype(np.float32)).cuda()
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.inference_mode():
+        frames = [W.to_bytes(W.encode_activation(part.head(xi), ae), checksum=True) for xi in x]
+    lo = SplitRuntime._payload_lo(frames[0])
+    sent = [plan.corrupt_bytes(f, cid, 0, 0, lo=lo) if cid in SERVER_CORRUPT else f
+            for cid, f in enumerate(frames)]
+    srv = TailServer(part, n_slots=4, client_batch=1, faults=plan, device="cuda")
+    accepted = [srv.submit(cid, f) for cid, f in enumerate(sent)]
+    if (accepted != [cid not in SERVER_CORRUPT for cid in range(SERVER_CLIENTS)]
+            or srv.n_rejected != len(SERVER_CORRUPT) or srv.rejected != list(SERVER_CORRUPT)):
+        raise AssertionError(f"Z15 tail server: accepted {accepted}, rejected {srv.rejected}")
+    served, steps = {}, []
+    for now in SERVER_STEPS_AT:
+        got = srv.step(now=now)
+        if plan.blackout_at(now) and got:
+            raise AssertionError(f"Z15 tail server served {sorted(got)} inside a blackout at {now}")
+        steps.append((now, sorted(got)))
+        served.update(got)
+    clean = TailServer(part, n_slots=4, client_batch=1, device="cuda")
+    for cid, f in enumerate(frames):
+        if cid not in SERVER_CORRUPT:
+            clean.submit(cid, f)
+    want = clean.drain()
+    counts = launch_counts()
+    n_ok = SERVER_CLIENTS - len(SERVER_CORRUPT)
+    check_launches("Z15 tail server", counts, {"bottleneck_compress": SERVER_CLIENTS,
+                                              "bottleneck_decompress": 2 * n_ok})
+    if sorted(served) != sorted(want) or any(not np.array_equal(served[c], want[c]) for c in want):
+        raise AssertionError(f"Z15 tail server: served {sorted(served)}, the clean server "
+                             f"{sorted(want)}, or their logits differ")
+    rels = []
+    for c, got in served.items():
+        plain = plain_chain(model, params, {cut: ae}, x[c], cuts=(cut,)).cpu().numpy()
+        rels.append(float(np.abs(got - plain).max() / np.abs(plain).max()))
+        if rels[-1] > LOGIT_RTOL:
+            raise AssertionError(f"Z15 tail server: client {c}'s logits off the plain chain by "
+                                 f"{rels[-1]} (bar {LOGIT_RTOL})")
+    blackout_steps = sum(plan.blackout_at(t) for t in SERVER_STEPS_AT)
+    if srv.n_blackout_steps != blackout_steps:
+        raise AssertionError(f"Z15 tail server: {srv.n_blackout_steps} blackout steps, "
+                             f"want {blackout_steps}")
+    return {"cut": cut, "clients": SERVER_CLIENTS, "rejected": srv.rejected,
+            "n_blackout_steps": srv.n_blackout_steps, "steps": steps,
+            "n_batches": srv.n_batches, "rel_err_vs_plain": max(rels), "launches": counts}
+
+
+def fleet_on_card(model, params, params_cpu, aes, found, xs, ys, table) -> dict:
+    """Z16: ``DeploymentPlanner`` over the example's fleet on the card, its
+    accuracy legs ``ApplicationSimulator`` forwards of Z13's images, its
+    server stage priced by Z14's table.  Holds (a) the event and vectorized
+    cluster engines' stats on the suggested plans within ``PCTL_RTOL``; (b)
+    the card's plan points over FLEET_HOLD_IMAGES images equal to a CPU
+    planner's over the same images, same weights and table; (c)
+    ``AdaptiveController.from_planner`` making the same switch decisions
+    under both engines on the example's regime change.  No kernel runs."""
+    mix = [DeviceClass.make(name, Channel(**ch), weight=w) for name, ch, w in FLEET_MIX]
+    trace = generate_trace(mix, FLEET_REQUESTS, FLEET_RATE_HZ, pattern="diurnal",
+                           seed=FLEET_SEED)
+    cs, idx = np.asarray(found["cs_curve"]), found["layer_idx"]
+    cuts = tuple(sorted(aes))
+    space = SearchSpace(split_points=cuts, protocols=("tcp", "udp"), batch_sizes=(1, 8, 32),
+                        replica_counts=(1, 2), top_k_splits=len(cuts), include_rc=True)
+    qos = QoSRequirements(**FLEET_QOS)
+
+    def planner(p, ae_map, data, device):
+        return DeploymentPlanner(model, p, cs_curve=cs, layer_idx=idx, ae_map=ae_map,
+                                 eval_data=data, n_frames=FLEET_FRAMES, cost=table,
+                                 device=device)
+
+    out = {"requests": len(trace), "horizon_s": trace.horizon_s,
+           "by_device": {d.name: len(trace.for_device(d.name)) for d in mix}}
+    reset_launches()
+    t0 = time.perf_counter()
+    card = planner(params, aes, (xs, ys), "cuda")
+    points = card.search(trace, mix, space)
+    plans = card.suggest(qos, (trace, mix), points=points)
+    out["search_s"] = time.perf_counter() - t0
+    out["n_points"], out["n_legs"] = len(points), len(card._flow_cache)
+    out["n_infeasible_legs"] = card.n_infeasible_legs
+    out["front"] = [dataclasses.asdict(p) for p in card.pareto_front(points)]
+    out["plans"] = {k: None if p is None else dataclasses.asdict(p) for k, p in plans.items()}
+    out["leg_accuracy"] = {"/".join(k): f["accuracy"] for k, f in card._flow_cache.items()}
+    if not any(p is not None for p in plans.values()):
+        raise AssertionError("Z16: no QoS-feasible plan for any device class")
+    # (a) the two cluster engines on the suggested plans
+    t0 = time.perf_counter()
+    reports = {e: simulate_deployment(plans, trace, mix, card, engine=e)
+               for e in ("event", "vectorized")}
+    out["deployment_s"] = time.perf_counter() - t0
+    for key, ev in reports["event"].items():
+        ve = reports["vectorized"][key]
+        same = (ev["n_served"] == ve["n_served"] and ev["drop_fraction"] == ve["drop_fraction"]
+                and ev["devices"] == ve["devices"]
+                and all(math.isclose(ev[k], ve[k], rel_tol=PCTL_RTOL, abs_tol=PCTL_ATOL)
+                        for k in ("p50_s", "p99_s", "mean_batch", "utilization")))
+        if not same:
+            raise AssertionError(f"Z16 deployment {key}: event {ev}, vectorized {ve}")
+    out["deployment"] = {str(k): v for k, v in reports["event"].items()}
+    # (b) the card's planner against the CPU's, over the first images
+    t0 = time.perf_counter()
+    few = (xs[:FLEET_HOLD_IMAGES], ys[:FLEET_HOLD_IMAGES])
+    held = {"card": planner(params, aes, few, "cuda"),
+            "cpu": planner(params_cpu, {c: to_cpu(a) for c, a in aes.items()}, few, "cpu")}
+    pts = {k: pl.search(trace, mix, space) for k, pl in held.items()}
+    if len(pts["card"]) != len(pts["cpu"]):
+        raise AssertionError(f"Z16: {len(pts['card'])} plan points on the card, "
+                             f"{len(pts['cpu'])} on the CPU")
+    for a, b in zip(pts["card"], pts["cpu"]):
+        keys = ("device", "label", "split_layer", "protocol", "max_batch", "n_replicas",
+                "engine", "batch_window_s")
+        if (any(getattr(a, k) != getattr(b, k) for k in keys) or a.satisfies(qos) != b.satisfies(qos)
+                or a.accuracy != b.accuracy
+                or not all(math.isclose(getattr(a, k), getattr(b, k), rel_tol=FLEET_REL, abs_tol=0)
+                           for k in ("p50_s", "p99_s", "server_flops_per_s", "drop_fraction"))):
+            raise AssertionError(f"Z16 plan point on the card {a}, on the CPU {b}")
+    out["hold_points"] = len(pts["card"])
+    out["hold_s"] = time.perf_counter() - t0
+    # (c) the adaptive controller under both engines
+    t0 = time.perf_counter()
+    rush = (DeviceClass.make("edge-embedded", Channel(**RUSH_CHANNEL), name="rush-client"),)
+    scenario = RegimeChangeTrace.from_phases(rush, [Phase(d, r) for d, r in RUSH_PHASES], seed=7)
+    ctl_space = SearchSpace(split_points=cuts, protocols=("tcp", "udp"), batch_sizes=(1, 8, 64),
+                            replica_counts=(1,), top_k_splits=len(cuts), include_rc=True)
+    ctl = AdaptiveController.from_planner(card, ctl_space, config=ControllerConfig(**RUSH_CONFIG))
+    runs = {e: ctl.run(scenario, engine=e) for e in ("vectorized", "event")}
+
+    def decisions(r):
+        return {"plan_keys": list(r.plan_keys),
+                "switches": [(s.t_s, s.from_key, s.to_key, s.reason, s.forced)
+                             for s in r.switches],
+                "migration": r.migration, "dropped": r.dropped,
+                "counts": [r.n_decisions, r.n_replans, r.n_suppressed]}
+    if decisions(runs["vectorized"]) != decisions(runs["event"]):
+        raise AssertionError(f"Z16 controller: vectorized {decisions(runs['vectorized'])}, "
+                             f"event {decisions(runs['event'])}")
+    out["controller"] = {"candidates": len(ctl.candidates), "requests": len(scenario.trace),
+                         **decisions(runs["vectorized"]),
+                         "p99_ms": {e: 1e3 * r.p99_s for e, r in runs.items()},
+                         "drop_fraction": runs["vectorized"].drop_fraction}
+    out["controller_s"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    check_launches("Z16 fleet", out["launches"], {})
     return out
 
 
@@ -1330,11 +1722,25 @@ def split_lens(cfg, params, toks) -> dict:
     with torch.inference_mode():
         encode_ms = device_ms(lambda: B.encode_wire(ae, x))
         decode_ms = device_ms(lambda: B.decode_wire(ae, q, s))
+    # Table I of the view at the served batch, as the planner's and
+    # measure_flow's pricing would ask for it: the view's blocks close over
+    # real parameters, so ``activation_shapes(sample=)`` runs a real forward
+    # (no ``meta`` path); ``summary`` then caches the rows by shape
+    summary_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = stats.summary(lay, [{} for _ in lay.layers], sample={"tokens": toks})
+        torch.cuda.synchronize()
+        summary_ms.append(1e3 * (time.perf_counter() - t0))
+    if len(rows) != len(lay.layers) or rows[-1].output_shape[:2] != tuple(toks.shape):
+        raise AssertionError(f"Z4 split: Table I of the view {[r.output_shape for r in rows]}")
     return {"cut_after_layer": cut, "layer_name": lay.layers[cut].name,
             "rows": int(q.shape[0] * q.shape[1]), "d_model": cfg.d_model,
             "latent": int(q.shape[-1]), "wire_bytes": q.numel() + 4 * s.numel(),
             "raw_bytes": x.numel() * x.element_size(), "launches": counts,
-            "encode_wire_ms": encode_ms, "decode_wire_ms": decode_ms}
+            "encode_wire_ms": encode_ms, "decode_wire_ms": decode_ms,
+            "view_summary_cold_ms": summary_ms[0], "view_summary_cached_ms": summary_ms[1]}
 
 
 def e2e_check(arch, n_layers=2, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> dict:
@@ -1515,10 +1921,21 @@ def main() -> int:
     xs, ys = simulate_fig4(model, params, params_cpu, aes)
     print(f"Z13 took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    hil = calibrate_hil(model, params, aes, xs, ys)
+    hil, table = calibrate_hil(model, params, aes, xs, ys)
     print("Z14 calibrate", json.dumps(hil), flush=True)
     print(f"Z14 took {time.perf_counter() - t0:.1f} s", flush=True)
-    del model, params, params_cpu, aes, xs, ys
+    # Z15, Z16: fault recovery in the split runtime and the fleet layers, on
+    # the same VGG16 with Z12's AEs, Z13's images and Z14's table
+    t0 = time.perf_counter()
+    faults = fault_recovery(model, params, params_cpu, aes)
+    faults["tail_server"] = tail_server_faults(model, params, FINETUNE_CUT, aes[FINETUNE_CUT])
+    print("Z15 tail server", json.dumps(faults["tail_server"]), flush=True)
+    print(f"Z15 took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fleet = fleet_on_card(model, params, params_cpu, aes, found, xs, ys, table)
+    print("Z16 fleet", json.dumps(fleet), flush=True)
+    print(f"Z16 took {time.perf_counter() - t0:.1f} s", flush=True)
+    del model, params, params_cpu, aes, xs, ys, table
     torch.cuda.empty_cache()
 
     # the kernels line: launches from each kernel's main path
@@ -1529,6 +1946,9 @@ def main() -> int:
              "mamba_scan": (f"Z8 {JAMBA} ServingEngine.run", jamba["launches"])}
     also = {"Z12 deploy": deployed["launches"],
             "Z14 calibrate": hil["launches"],
+            **{f"Z15 {k}": c for k, c in faults["launches"].items()},
+            "Z15 tail server": faults["tail_server"]["launches"],
+            "Z16 fleet": fleet["launches"],
             "Z4 split": llama["split"]["launches"],
             f"Z8 {JAMBA}": jamba["launches"],
             f"Z8 {JAMBA} prefill": jamba["prefill_launches"],

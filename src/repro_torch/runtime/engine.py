@@ -1,13 +1,16 @@
 """Live split execution: head on the edge, tail on the server, the int8
-wire in between (twin of ``repro/runtime/engine.py`` without fault
-injection and recovery, which wait for a later slice).
+wire in between (twin of ``repro/runtime/engine.py``).
 
 * :class:`SplitRuntime` — one client end to end: stage forward, wire encode
   -> bytes -> (netsim-priced transfer) -> decode, next stage.  Every stage
   is timed on the host clock behind a ``torch.cuda.synchronize()`` fence.
+  With a :class:`~repro_torch.runtime.faults.FaultPlan` the chain runs under
+  the retry, backoff, codec-downgrade and local-fallback machinery of a
+  :class:`~repro_torch.runtime.faults.RecoveryPolicy`.
 * :class:`TailServer` — the server side under many clients: tail requests
   queue and are batched through a fixed :class:`SlotPool`, one batched tail
-  forward per step.
+  forward per step; a fault plan makes it reject corrupted frames and go
+  dark in blackout windows.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from repro_torch.netsim.channel import Channel
 from repro_torch.netsim.protocols import simulate_transfer
 from repro_torch.obs import NULL, Span, labelled
 from repro_torch.runtime import wire as W
+from repro_torch.runtime.faults import (FaultError, FaultPlan, RecoveryExhausted,
+                                        RecoveryPolicy, downgrade_ladder)
 from repro_torch.runtime.partition import Partition, make_partition
 from repro_torch.serving.continuous import SlotPool
 
@@ -105,9 +110,13 @@ def build_infer_spans(stage_s, hops, splits, *, base: float = 0.0,
                    + h["decode_s"], clock, tid, "runtime",
                    {"cut": h["cut"], "bytes": h["bytes"]})
         root.children.append(hop)
-        for part in ("encode", "transfer", "decode"):
-            d = h[f"{part}_s"]
-            hop.children.append(Span(part, t, t + d, clock, tid, "runtime"))
+        # a recovering hop carries its event log (timeouts, backoffs,
+        # re-encodes); its buckets sum to encode_s/transfer_s/decode_s
+        events = h.get("events") or [(part, part, h[f"{part}_s"])
+                                     for part in ("encode", "transfer",
+                                                  "decode")]
+        for name, _bucket, d in events:
+            hop.children.append(Span(name, t, t + d, clock, tid, "runtime"))
             t += d
     return root
 
@@ -124,12 +133,17 @@ class SplitRuntime:
     (``Partition.fused_segments``): the codec moves into ``stage_s`` and
     hop ``encode_s``/``decode_s`` shrink to framing and parsing; the bytes
     on the wire are the same.
+
+    ``faults``/``recovery``: a fault plan runs every ``infer`` through
+    :meth:`_run_recovering`; ``faults=None`` leaves the paths above and their
+    SEI1 frames untouched.
     """
 
     def __init__(self, model, params, split_layer, *,
                  ae: Optional[dict] = None, channel=None, protocol: str = "tcp",
                  quantize: bool = True, fused: bool = False, obs=None,
-                 device="cuda"):
+                 faults: Optional[FaultPlan] = None,
+                 recovery: Optional[RecoveryPolicy] = None, device="cuda"):
         self.part: Partition = make_partition(model, params, split_layer, ae,
                                               device=device)
         self.device = self.part.device
@@ -138,6 +152,8 @@ class SplitRuntime:
         self.fused = fused
         self.hops = self._resolve_hops(channel, protocol)
         self.obs = NULL if obs is None else obs
+        self.faults = faults
+        self.recovery = recovery if recovery is not None else RecoveryPolicy()
 
     def _resolve_hops(self, channel, protocol) -> list:
         """Per-hop (protocol, channel) pairs; None entries skip pricing."""
@@ -171,8 +187,14 @@ class SplitRuntime:
     def _input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    def infer(self, x, *, iters: int = 3, stream: int = 0) -> RuntimeResult:
-        """Timed stage -> wire -> stage ... execution of one input batch."""
+    def infer(self, x, *, iters: int = 3, stream: int = 0,
+              rid: int = 0) -> RuntimeResult:
+        """Timed stage -> wire -> stage ... execution of one input batch.
+        ``rid`` keys the fault plan's draws (ignored without a plan)."""
+        if self.faults is not None:
+            logits, stage_s, hops, extra = self._run_recovering(
+                self._input(x), iters=iters, stream=stream, rid=rid)
+            return self._package(logits, stage_s, hops, extra)
         run = self._run_fused if self.fused else self._run_eager
         logits, stage_s, hops = run(self._input(x), iters=iters, stream=stream)
         return self._package(logits, stage_s, hops)
@@ -226,7 +248,210 @@ class SplitRuntime:
                          "decode_s": parse_s, **meta})
         return out, stage_s, hops
 
-    def _package(self, logits, stage_s, hops) -> RuntimeResult:
+    # ------------------------------------------------------- recovery ----
+    def _encode_rung(self, f, ae_k, kind: str) -> bytes:
+        """The boundary activation at one degradation rung, as a checksummed
+        (SEI2) frame; lower rungs re-encode from the same activation."""
+        if kind == "ae8":
+            pkt = W.encode_activation(f, ae_k, quantize=True)
+        else:
+            pkt = W.encode_activation(f, None, quantize=(kind == "int8"))
+        return W.to_bytes(pkt, checksum=True)
+
+    @staticmethod
+    def _payload_lo(buf: bytes) -> int:
+        """First payload byte of an SEI2 frame: corruption aims past the
+        header, so the CRC, not the magic, has to catch it."""
+        return 6 + 4 * buf[5] + 8
+
+    def _run_stage_faulted(self, k: int, cur, *, iters, rid, plan,
+                           counts, rec):
+        """Stage k under injected stage exceptions: retried until the plan
+        stops faulting (at most ``max_consecutive`` times), each crashed
+        attempt charged one stage execution."""
+        attempt = 0
+        while True:
+            try:
+                if plan.stage_fault(rid, k, attempt):
+                    raise FaultError(
+                        f"injected fault in stage {k} (attempt {attempt})")
+                s, out = timeit_blocked(self.part.stage(k), cur, iters=iters)
+                break
+            except FaultError:
+                counts["stage"] += 1
+                rec["retries"] += 1
+                attempt += 1
+        return s * (1 + attempt), out
+
+    def _recover_hop(self, k: int, cur, *, iters, stream, rid,
+                     counts, rec, t: float):
+        """Hop k under the fault plan: attempts with RTO-derived timeouts,
+        backoff, codec downgrade and local-fallback escalation.  Returns
+        ``(boundary, hop_dict, t, fell_back)``; on a fall back the boundary
+        is the exact activation, still on the device."""
+        plan, pol = self.faults, self.recovery
+        cut = self.part.splits[k]
+        ae_k = self.part.ae_map.get(cut)
+        ladder = downgrade_ladder(W.wire_kind(ae_k, self.quantize))
+        ch_k = None if self.hops[k] is None else self.hops[k][1]
+        last_hop = k == len(self.part.splits) - 1
+        events, tmeta = [], {}
+        rung, corruptions, attempt = 0, 0, 0
+        fell_back = False
+
+        def encode(rung_kind):
+            return timeit_blocked(
+                lambda v: self._encode_rung(v, ae_k, rung_kind), cur,
+                iters=iters)
+
+        enc_s, buf = encode(ladder[rung])
+        events.append(("encode", "encode", enc_s))
+        t += enc_s
+        while True:
+            if attempt >= pol.max_attempts or (
+                    pol.deadline_s is not None and t >= pol.deadline_s):
+                if not pol.local_fallback:
+                    raise RecoveryExhausted(
+                        f"hop {k}: {attempt} attempts, "
+                        f"t={t:.3f}s of budget {pol.deadline_s}")
+                rec["local_fallback"] = True
+                fell_back = True
+                break
+            fate = plan.transfer_fault(rid, k, attempt)
+            if last_hop and plan.blackout_at(t):
+                fate = "blackout"     # the server leg is dark: a timeout
+            if fate in ("drop", "blackout"):
+                counts[fate] += 1
+                lost_s = pol.timeout_s(ch_k, len(buf))
+                back = pol.backoff_s(attempt, seed=plan.seed, rid=rid,
+                                     hop=k, channel=ch_k)
+                events.append((f"{fate}-timeout", "transfer", lost_s))
+                events.append(("backoff", "transfer", back))
+                t += lost_s + back
+                rec["timeouts"] += 1
+                rec["backoff_s"] += back
+                rec["retries"] += 1
+                attempt += 1
+                continue
+            transfer_s, tmeta = self._price_hop(k, len(buf),
+                                                stream + 7919 * attempt)
+            if fate == "corrupt":
+                counts["corrupt"] += 1
+                events.append(("transfer", "transfer", transfer_s))
+                t += transfer_s
+                bad = plan.corrupt_bytes(buf, rid, k, attempt,
+                                         lo=self._payload_lo(buf))
+                try:
+                    W.from_bytes(bad)
+                    raise AssertionError(
+                        "corrupted SEI2 frame decoded cleanly")
+                except W.WireError as e:
+                    rec["log"].append(
+                        {"event": "corrupt", "hop": k, "attempt": attempt,
+                         "error": str(e)})
+                corruptions += 1
+                back = pol.backoff_s(attempt, seed=plan.seed, rid=rid,
+                                     hop=k, channel=ch_k)
+                events.append(("backoff", "transfer", back))
+                t += back
+                rec["backoff_s"] += back
+                rec["retries"] += 1
+                if corruptions >= pol.downgrade_after \
+                        and rung + 1 < len(ladder):
+                    rung += 1
+                    corruptions = 0
+                    rec["downgrades"].append(
+                        {"hop": k, "to": ladder[rung], "attempt": attempt})
+                    enc_s, buf = encode(ladder[rung])
+                    events.append(("re-encode", "encode", enc_s))
+                    t += enc_s
+                attempt += 1
+                continue
+            # delivered, possibly late (a straggling tail server)
+            if fate == "straggle":
+                counts["straggle"] += 1
+                events.append(("straggle", "transfer", plan.straggle_s))
+                t += plan.straggle_s
+            events.append(("transfer", "transfer", transfer_s))
+            t += transfer_s
+            dec_s, cur = timeit_blocked(
+                lambda b, kk=ladder[rung]: W.decode_activation(
+                    W.from_bytes(b), ae_k if kk == "ae8" else None,
+                    device=self.device),
+                buf, iters=iters)
+            events.append(("decode", "decode", dec_s))
+            t += dec_s
+            break
+        hop = {"cut": cut, "bytes": len(buf),
+               "encode_s": sum(d for _, b, d in events if b == "encode"),
+               "transfer_s": sum(d for _, b, d in events if b == "transfer"),
+               "decode_s": sum(d for _, b, d in events if b == "decode"),
+               "attempts": attempt + (0 if fell_back else 1),
+               "kind": ladder[rung], "delivered": not fell_back,
+               "events": events, **tmeta}
+        return cur, hop, t, fell_back
+
+    def _run_recovering(self, x, *, iters: int, stream: int,
+                        rid: int) -> tuple:
+        """The eager stage chain under the fault plan and the recovery
+        policy.  Eager even under ``fused=True`` (``exec: "eager"`` in the
+        record): a downgrade re-encodes from the raw boundary activation,
+        which the fused segments never expose.  Frames ship as SEI2, so a
+        corrupted one is caught by its CRC and never decoded."""
+        plan = self.faults
+        counts = {"drop": 0, "corrupt": 0, "straggle": 0, "stage": 0,
+                  "blackout": 0}
+        rec = {"retries": 0, "timeouts": 0, "backoff_s": 0.0,
+               "downgrades": [], "local_fallback": False, "exec": "eager",
+               "log": []}
+        t = 0.0
+        cur = x
+        stage_s, hops = [], []
+        for k in range(self.part.n_stages):
+            s, cur = self._run_stage_faulted(k, cur, iters=iters, rid=rid,
+                                             plan=plan, counts=counts,
+                                             rec=rec)
+            stage_s.append(s)
+            t += s
+            if k >= len(self.part.splits):
+                break
+            cur, hop, t, fell_back = self._recover_hop(
+                k, cur, iters=iters, stream=stream, rid=rid,
+                counts=counts, rec=rec, t=t)
+            hops.append(hop)
+            if fell_back:
+                # the server leg is out of budget: the edge runs every
+                # remaining stage on the exact boundary activation
+                for j in range(k + 1, self.part.n_stages):
+                    s, cur = self._run_stage_faulted(
+                        j, cur, iters=iters, rid=rid, plan=plan,
+                        counts=counts, rec=rec)
+                    stage_s.append(s)
+                    t += s
+                break
+        rec["t_virtual_s"] = t
+        obs = self.obs
+        if obs.enabled:
+            now = obs.tracer.wall_now()
+            for name, v in counts.items():
+                if v:
+                    obs.metrics.counter(f"runtime.fault.{name}").inc(v)
+            obs.metrics.counter("runtime.retry.attempts").inc(rec["retries"])
+            obs.metrics.counter("runtime.retry.timeouts").inc(rec["timeouts"])
+            obs.metrics.counter("runtime.retry.backoff_s").inc(
+                rec["backoff_s"])
+            obs.metrics.counter("runtime.retry.downgrades").inc(
+                len(rec["downgrades"]))
+            if rec["local_fallback"]:
+                obs.metrics.counter("runtime.retry.local_fallback").inc()
+            obs.metrics.record("runtime.retry.t_virtual_s", now, t)
+        extra = {"degraded": bool(rec["downgrades"]) or rec["local_fallback"],
+                 "local_fallback": rec["local_fallback"],
+                 "recovery": {**rec, "faults": counts}}
+        return cur, stage_s, hops, extra
+
+    def _package(self, logits, stage_s, hops,
+                 extra_meta: Optional[dict] = None) -> RuntimeResult:
         result = RuntimeResult(
             logits.cpu().numpy(), self.part.split_layer,
             stage_s[0],
@@ -236,7 +461,7 @@ class SplitRuntime:
             sum(stage_s[1:]),
             sum(h["bytes"] for h in hops),
             {**(dict(hops[0]) if len(hops) == 1 else {"hops": hops}),
-             "fused": self.fused},
+             "fused": self.fused, **(extra_meta or {})},
             splits=self.part.splits, stage_s=tuple(stage_s),
             hops=tuple(hops))
         obs = self.obs
@@ -276,11 +501,14 @@ class TailServer:
     Requests (wire byte strings) queue; each :meth:`step` admits up to
     ``n_slots`` of them into the slot pool, decodes them, and runs one
     batched tail forward for the whole pool (empty slots padded with zeros,
-    their outputs discarded), so the tail always sees one shape.
+    their outputs discarded), so the tail always sees one shape.  With a
+    fault plan, :meth:`submit` checks each frame's CRC and rejects a
+    corrupted one, and :meth:`step` serves nothing inside a blackout window.
     """
 
     def __init__(self, part: Partition, *, n_slots: int = 4,
-                 client_batch: int = 1, device="cuda"):
+                 client_batch: int = 1,
+                 faults: Optional[FaultPlan] = None, device="cuda"):
         dev = resolve_device(device)
         if part.device != dev:
             raise ValueError(f"the partition lives on {part.device}, the "
@@ -294,14 +522,34 @@ class TailServer:
         self.n_batches = 0
         self.n_served = 0
         self.occupancy: list = []
+        self.faults = faults
+        self.n_rejected = 0
+        self.rejected: list = []
+        self.n_blackout_steps = 0
 
-    def submit(self, client_id: int, payload: bytes, t: float = 0.0) -> None:
-        """Queue one wire payload."""
+    def submit(self, client_id: int, payload: bytes, t: float = 0.0) -> bool:
+        """Queue one wire payload; returns whether it was accepted.  With a
+        fault plan a frame that fails its integrity check is rejected and
+        counted (the client's retry loop re-sends it)."""
+        if self.faults is not None:
+            try:
+                W.from_bytes(payload)
+            except W.WireError:
+                self.n_rejected += 1
+                self.rejected.append(client_id)
+                return False
         self.queue.append(TailRequest(client_id, payload, t))
+        return True
 
-    def step(self) -> dict:
+    def step(self, now: Optional[float] = None) -> dict:
         """Serve up to ``n_slots`` queued requests in one batched forward.
-        Returns ``{client_id: logits}`` for the requests served."""
+        Returns ``{client_id: logits}`` for the requests served.  ``now``, a
+        virtual-clock time, lets the fault plan's blackout windows apply: a
+        step inside one serves nothing."""
+        if (self.faults is not None and now is not None
+                and self.faults.blackout_at(now)):
+            self.n_blackout_steps += 1
+            return {}
         while self.queue and self.pool.free_slots():
             self.pool.admit(self.queue.popleft())
         active = self.pool.occupied()

@@ -8,11 +8,12 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core import bottleneck as JB  # noqa: E402
-from repro.obs import Recorder  # noqa: E402
+from repro.obs import Recorder as JRecorder  # noqa: E402
 from repro.runtime import engine as JE  # noqa: E402
 from repro_torch.core import bottleneck as TB  # noqa: E402
 from repro_torch.models import vgg as tvgg  # noqa: E402
 from repro_torch.netsim.channel import Channel as TChannel  # noqa: E402
+from repro_torch.obs import Recorder  # noqa: E402
 from repro_torch.params import ae_from_numpy, vgg_params_from_numpy  # noqa: E402
 from repro_torch.runtime import engine as TE  # noqa: E402
 from repro_torch.runtime import wire as TW  # noqa: E402
@@ -108,7 +109,8 @@ def test_multi_cut_int8_matches_reference(setup):
 def test_priced_hops_and_span_tree_match_reference(setup, protocol):
     jm, jp, tm, tp, jaes, taes, x = setup
     args = dict(latency_s=0.002, capacity_bps=50e6, interface_bps=100e6, loss_rate=0.05)
-    jr = JE.SplitRuntime(jm, jp, 9, ae=jaes[9], channel=JChannel(**args),
+    jrec = JRecorder()
+    jr = JE.SplitRuntime(jm, jp, 9, ae=jaes[9], channel=JChannel(**args), obs=jrec,
                          protocol=protocol).infer(x, iters=1)
     rec = Recorder()
     tr = TE.SplitRuntime(tm, tp, 9, ae=taes[9], channel=TChannel(**args), obs=rec,
@@ -119,6 +121,16 @@ def test_priced_hops_and_span_tree_match_reference(setup, protocol):
     assert tr.trace.dur == pytest.approx(tr.total_s, rel=1e-12)
     assert [s.name for s in tr.trace.walk()] == [s.name for s in jr.trace.walk()]
     assert len(rec.tracer.spans) == len(list(tr.trace.walk()))
+    # the port's recorder holds the same spans and metric names as the
+    # reference's for the same run
+    assert ([(s.name, s.clock, s.tid, s.cat) for s in rec.tracer.spans]
+            == [(s.name, s.clock, s.tid, s.cat) for s in jrec.tracer.spans])
+    assert rec.metrics.series_names() == jrec.metrics.series_names()
+    assert ([len(rec.metrics.timeseries(n)[1]) for n in rec.metrics.series_names()]
+            == [len(jrec.metrics.timeseries(n)[1]) for n in jrec.metrics.series_names()])
+    hop_bytes = "runtime.hop_bytes{k=0}"
+    assert (rec.metrics.timeseries(hop_bytes)[1].tolist()
+            == jrec.metrics.timeseries(hop_bytes)[1].tolist())
 
 
 @pytest.mark.parametrize("masked", [False, True])
