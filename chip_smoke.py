@@ -91,18 +91,34 @@ no install: it puts ``src/`` on the path itself).  Phases:
     and vectorized cluster engines held together on the suggested plans, the
     card's plan points to a CPU planner's over 2 images, and
     ``AdaptiveController.from_planner`` deciding the same under both engines;
-19. print the kernels' launch counts with their errors, times and bounds as
+19. (Z17) the paper's design flow through the ``Study`` facade (twins of
+    ``examples/quickstart.py``, ``examples/multi_tier.py``,
+    ``tests/test_obs.py::test_study_observe_fleet_and_runtime`` and
+    ``benchmarks/bench_api.py``'s hand-stitched comparison) on phase 4's
+    VGG16 and Z11's images, telemetry armed: ``profile`` (held to a direct
+    ``cumulative_saliency``), ``candidates``, ``bottlenecks`` at the SC cuts,
+    ``calibrate`` (fused), ``simulate`` (each measured verdict held to a
+    direct ``measure_flow`` with the study's table), the path mode and a
+    tier plan over ``tests/test_multitier.py``'s topology (deployed, held to
+    the plain chain), the fleet planner over Z16's classes with its
+    observed joint run, ``adapt`` on Z16's rush, a deploy of the top SC cut
+    (held to the plain chain) and a 4-slot tail server for 4 clients; the
+    Chrome trace's span names; then ``fit`` on a second study, its first
+    step replayed on the CPU; each verb's host seconds and peak memory;
+20. print the kernels' launch counts with their errors, times and bounds as
     one JSON line, then ``{"ok": true, "device": ...}``.
 
 Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z11, Z12's training and its
-deploy, Z13, Z14, each part of Z15, Z16) runs with the launch counts set to 0
-just before it and read just after; a served run's prefill and decode are
-counted apart as well, and ``flash_attention``'s launches by route
-(``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32 one).  Z11, Z12's
-training, Z13 and Z16 launch no kernel (a wrapper refuses an input that
-requires grad; the simulator runs the plain f32 forward); Z14 and Z15 launch
-each codec kernel a number of times worked out from the code (Z15: from the
-rungs each request took).  Any failed check raises, so the script exits
+deploy, Z13, Z14, each part of Z15, Z16, Z17 and its ``fit``) runs with the
+launch counts set to 0 just before it and read just after; a served run's
+prefill and decode are counted apart as well, and ``flash_attention``'s
+launches by route (``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32
+one).  Z11, Z12's training, Z13, Z16 and Z17's ``fit`` launch no kernel (a
+wrapper refuses an input that requires grad; the simulator runs the plain
+f32 forward); Z14, Z15 and Z17 launch each codec kernel a number of times
+worked out from the code (Z15: from the rungs each request took; Z17: its
+calibrate at each AE cut, its two deploys' infers at each hop with an AE,
+and its 4 clients).  Any failed check raises, so the script exits
 non-zero and prints no result.  It exits non-zero as well where CUDA is not
 available.
 """
@@ -125,6 +141,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.api import NetworkPath, Study, Tier, TierTopology  # noqa: E402
+from repro_torch.api.study import fit_loss  # noqa: E402
 from repro_torch.api.types import AnalyticCost, CostStack, legal_split_candidates  # noqa: E402
 from repro_torch.configs import SERVED, get_config  # noqa: E402
 from repro_torch.core import bottleneck as B  # noqa: E402
@@ -154,7 +172,7 @@ from repro_torch.fleet import (PCTL_RTOL, AdaptiveController, ControllerConfig, 
 from repro_torch.fleet.vectorized import PCTL_ATOL  # noqa: E402
 from repro_torch.netsim.channel import INTERFACES, Channel  # noqa: E402
 from repro_torch.netsim.simulator import (ApplicationSimulator, NetworkConfig,  # noqa: E402
-                                          measure_flow)
+                                          flow_latency_s, measure_flow)
 from repro_torch.runtime import wire as W  # noqa: E402
 from repro_torch.runtime.calibrate import CalibrationTable, calibrate  # noqa: E402
 from repro_torch.runtime.engine import SplitRuntime, TailServer, run_clients  # noqa: E402
@@ -369,6 +387,24 @@ RUSH_PHASES = ((1.0, 20000.0), (4.0, 1500.0))
 RUSH_CHANNEL = {"latency_s": 1e-4, "capacity_bps": 100e6, "interface_bps": 100e6, "seed": 1}
 RUSH_CONFIG = {"control_period_s": 0.25, "drift_threshold": 0.3, "min_improvement": 0.05,
                "warmup_s": 0.02, "max_switches": 4}
+# Z17: the Study facade (repro_torch.api.study), a twin of examples/quickstart.py,
+# examples/multi_tier.py, tests/test_obs.py::test_study_observe_fleet_and_runtime and
+# benchmarks/bench_api.py's hand-stitched comparison, on phase 4's VGG16 (the same
+# seed) and Z11's images (its toy labels: on random weights the measured accuracies
+# are chance, so the QoS bars below ask for none)
+STUDY_AE_STEPS = 20
+STUDY_REL = 1e-9              # a facade verdict against the direct measure_flow
+# tests/test_multitier.py:147-150 and :275-282; tier plans priced a frame at a time
+# (batch=1): the fastest 2-cut plan over the mcu tier takes 2.1 s a frame
+STUDY_PATH = ((1e-3, 20e6, 20e6, 1), (1e-3, 30e6, 30e6, 2))
+STUDY_TIERS = (("device", "mcu"), ("edge", "edge-accelerator"), ("cloud", "server-gpu"))
+STUDY_LINK_QOS = {"max_latency_s": 1.0, "min_accuracy": 0.0}
+STUDY_TIER_QOS = {"max_latency_s": 5.0, "min_accuracy": 0.0}
+STUDY_FLEET_REQUESTS, STUDY_FLEET_SPACE = 300, {"protocols": ("tcp", "udp"),
+                                                "batch_sizes": (1, 8), "replica_counts": (1, 2)}
+STUDY_RUSH_SPACE = {"batch_sizes": (1, 8, 64), "replica_counts": (1,), "top_k_splits": 1}
+STUDY_CLIENTS = 4
+STUDY_FIT_STEPS, STUDY_FIT_BATCH, STUDY_FIT_SEED = 3, 8, 1
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS, exps: float = 0) -> tuple:
@@ -565,7 +601,8 @@ def frames_fused(part, x) -> tuple:
 
 
 def plain_chain(model, params, aes, x, cuts=SERVED_CUTS) -> torch.Tensor:
-    """The ae8 chain at ``cuts`` with the plain versions in place of the kernels."""
+    """The ae8 chain at ``cuts`` with the plain versions in place of the
+    kernels; a cut with no AE in ``aes`` rides the int8 wire (no kernel)."""
     bounds = (0,) + tuple(c + 1 for c in cuts) + (len(model.layers),)
     cur = x
     with torch.inference_mode():
@@ -573,7 +610,10 @@ def plain_chain(model, params, aes, x, cuts=SERVED_CUTS) -> torch.Tensor:
             cur = model.apply_range(params, cur, a, b)
             if k == len(cuts):
                 return cur
-            ae = aes[cuts[k]]
+            ae = aes.get(cuts[k])
+            if ae is None:
+                cur = W.decode_arrays(W.wire_kind(None), *W.encode_arrays(cur))
+                continue
             shape = cur.shape
             q, s = ref.bottleneck_compress_ref(cur.reshape(-1, shape[-1]), ae["enc"]["w"],
                                                ae["enc"]["b"])
@@ -1334,6 +1374,183 @@ def fleet_on_card(model, params, params_cpu, aes, found, xs, ys, table) -> dict:
     return out
 
 
+def study_facade(card) -> dict:
+    """Z17: the paper's design flow through ``Study`` at full width on the
+    card, with telemetry armed: profile (held to ``cumulative_saliency``
+    called directly), candidates, AEs at the SC cuts, calibrate (fused),
+    the measured link verdicts (held to a direct ``measure_flow`` with the
+    study's table), the path mode and a tier plan (deployed and held to the
+    plain chain), the fleet planner with its observed joint run, the
+    adaptive controller, a deploy of the top SC cut (held to the plain
+    chain) and a 4-slot tail server for STUDY_CLIENTS clients; the Chrome
+    trace's span names; then ``fit`` on a second study of the same model,
+    its first step replayed on the CPU.  The codec kernels' launches are
+    held to a count worked out from the code."""
+    model = vgg16()
+    params = model.init(seed=0, device="cuda")
+    xs, ys = toy_images(SEARCH_IMAGES, hw=224, seed=0)
+    verbs, out = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        verbs[name] = {"s": time.perf_counter() - t0,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        return result
+
+    reset_launches()
+    study = timed("Study", lambda: Study(model, params=params, data=(xs, ys), device="cuda"))
+    report = study.observe()
+    timed("profile", study.profile)
+    direct = cumulative_saliency(model, params, torch.from_numpy(xs).cuda(),
+                                 torch.from_numpy(ys).cuda(), layer_idx=feature_index(model))
+    out["cs_vs_direct"] = float(np.abs(study.cs_curve - direct).max())
+    if study.layer_idx != feature_index(model) or out["cs_vs_direct"] > CS_ATOL:
+        raise AssertionError(f"Z17 profile: the curve off a direct call by {out['cs_vs_direct']}"
+                             f" (bar {CS_ATOL})")
+    timed("candidates", study.candidates)
+    out["candidates"] = [(c.label, c.accuracy_proxy) for c in study.candidate_list]
+    sc = study.split_candidates()
+    timed("bottlenecks", lambda: study.bottlenecks(steps=STUDY_AE_STEPS))
+    ae_cuts = sorted(study._ae_map)
+    if ae_cuts != sorted(c.split_layer for c in sc):
+        raise AssertionError(f"Z17 bottlenecks at {ae_cuts}, the SC cuts {sc}")
+    timed("calibrate", lambda: study.calibrate(iters=CAL_ITERS, fused=True))
+
+    # the measured link verdicts against the direct calls bench_api.py stitches
+    timed("simulate", study.simulate)
+    netcfg = study.scenario.netcfg()
+    out["verdicts"] = []
+    for v in study.verdicts:
+        scen = v.candidate.scenario(study.scenario.edge, study.scenario.server)
+        flow = measure_flow(scen, netcfg, model, params, study.input_bytes,
+                            n_frames=study.scenario.n_frames, cost=study.calibration)
+        if (not math.isclose(v.latency_s, flow_latency_s(flow), rel_tol=STUDY_REL)
+                or v.meta["cost_source"] != flow["cost_source"] != "measured"):
+            raise AssertionError(f"Z17 simulate {v.candidate.label}: {v.latency_s} "
+                                 f"({v.meta['cost_source']}), direct {flow_latency_s(flow)} "
+                                 f"({flow['cost_source']})")
+        out["verdicts"].append({"label": v.candidate.label, "latency_ms": 1e3 * v.latency_s,
+                                "accuracy": v.accuracy, "cost_source": v.meta["cost_source"]})
+    best = timed("suggest", lambda: study.suggest(QoSRequirements(**STUDY_LINK_QOS)))
+    out["suggested"] = None if best is None else best.candidate.label
+
+    # the path mode, a tier plan over tests/test_multitier.py's topology, its deploy
+    path = NetworkPath(tuple(NetworkConfig("tcp", Channel(*h[:3], seed=h[3]))
+                             for h in STUDY_PATH))
+    timed("simulate_path", lambda: study.simulate(path=path, batch=1))
+    out["path"] = [{"label": v.candidate.label, "pipelined_ms": 1e3 * v.latency_s,
+                    "sequential_ms": 1e3 * v.meta["sequential_s"]} for v in study.verdicts]
+    links = [Channel(*h[:3], seed=h[3]) for h in STUDY_PATH] + [None]
+    topo = TierTopology(tuple(Tier(name, plat, ch) for (name, plat), ch
+                              in zip(STUDY_TIERS, links)))
+    plan = timed("suggest_tiers", lambda: study.suggest(QoSRequirements(**STUDY_TIER_QOS),
+                                                        tiers=topo, cut_counts=[2], batch=1))
+    if plan is None:
+        raise AssertionError(f"Z17: no tier plan within {STUDY_TIER_QOS}")
+    x = torch.from_numpy(toy_images(BATCH, hw=224, seed=DEPLOY_DATA_SEED)[0]).cuda()
+    rt = timed("deploy_tiers", study.deploy)
+    r = rt.infer(x, iters=1)
+    tier_aes = sum(c in study._ae_map for c in plan.splits)
+    plain = plain_chain(model, params, study._ae_map, x, cuts=plan.splits).cpu().numpy()
+    rel = float(np.abs(r.logits - plain).max() / np.abs(plain).max())
+    out["tier_plan"] = {"splits": list(plan.splits), "stage_tiers": list(plan.stage_tiers),
+                        "latency_ms": 1e3 * plan.latency_s, "speedup": plan.speedup,
+                        "aes_on_hops": tier_aes, "logit_rel_err_vs_plain": rel}
+    if rt.part.splits != plan.splits or len(rt.hops) != 2 or rel > LOGIT_RTOL:
+        raise AssertionError(f"Z17 tier deploy: {out['tier_plan']} (bar {LOGIT_RTOL})")
+
+    # the fleet planner (Z16's device classes) with its observed joint run, the controller
+    mix = [DeviceClass.make(name, Channel(**ch), weight=w) for name, ch, w in FLEET_MIX]
+    trace = generate_trace(mix, STUDY_FLEET_REQUESTS, FLEET_RATE_HZ, pattern="diurnal",
+                           seed=FLEET_SEED)
+    timed("simulate_fleet", lambda: study.simulate(fleet=(trace, mix), **STUDY_FLEET_SPACE))
+    plans = timed("suggest_fleet", lambda: study.suggest(QoSRequirements(**STUDY_LINK_QOS)))
+    out["fleet"] = {"points": len(study.plan_points),
+                    "plans": {k: None if p is None else (p.label, p.protocol, p.max_batch,
+                                                         p.n_replicas, 1e3 * p.p99_s)
+                              for k, p in plans.items()}}
+    if study.deployment_stats is None:
+        raise AssertionError(f"Z17: no observed fleet run for the plans {out['fleet']}")
+    rush = (DeviceClass.make("edge-embedded", Channel(**RUSH_CHANNEL), name="rush-client"),)
+    scenario = RegimeChangeTrace.from_phases(rush, [Phase(d, r) for d, r in RUSH_PHASES], seed=7)
+    adapted = timed("adapt", lambda: study.adapt(scenario, config=ControllerConfig(**RUSH_CONFIG),
+                                                 **STUDY_RUSH_SPACE))
+    out["adapt"] = {k: {"p99_ms": 1e3 * adapted[k].p99_s, "switches": adapted[k].n_switches,
+                        "plan_keys": list(adapted[k].plan_keys)} for k in ("adaptive", "static")}
+
+    # a deploy of the top SC cut, then a 4-slot tail server for its clients
+    top = sc[0]
+    rt = timed("deploy", lambda: study.deploy(candidate=top.label))
+    r = rt.infer(x, iters=1)
+    ae = study._ae_map[top.split_layer]
+    plain = plain_chain(model, params, {top.split_layer: ae}, x, cuts=(top.split_layer,))
+    plain = plain.cpu().numpy()
+    rel = float(np.abs(r.logits - plain).max() / np.abs(plain).max())
+    out["deploy"] = {"cut": top.split_layer, "wire_bytes": r.wire_bytes,
+                     "total_ms": 1e3 * r.compute_s, "logit_rel_err_vs_plain": rel}
+    if r.logits.shape != (BATCH, 1000) or not np.isfinite(r.logits).all() or rel > LOGIT_RTOL:
+        raise AssertionError(f"Z17 deploy: {out['deploy']} (bar {LOGIT_RTOL})")
+    srv = timed("deploy_serve", lambda: study.deploy(candidate=top.label, serve=True,
+                                                     n_slots=STUDY_CLIENTS))
+    with torch.inference_mode():
+        for cid in range(STUDY_CLIENTS):
+            head = srv.part.head(x[cid:cid + 1])
+            srv.submit(cid, W.to_bytes(W.encode_activation(head, ae)))
+    served = srv.drain()
+    rels = [float(np.abs(served[c] - plain[c:c + 1]).max() / np.abs(plain[c]).max())
+            for c in range(STUDY_CLIENTS)]
+    out["tail_server"] = {"clients": STUDY_CLIENTS, "n_batches": srv.n_batches,
+                          "rel_err_vs_plain": max(rels)}
+    if sorted(served) != list(range(STUDY_CLIENTS)) or max(rels) > LOGIT_RTOL:
+        raise AssertionError(f"Z17 tail server: {out['tail_server']} (bar {LOGIT_RTOL})")
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    n_comp = CAL_CODEC_LAUNCHES_PER_AE_CUT * len(ae_cuts) + 2 + 2 * tier_aes + STUDY_CLIENTS
+    check_launches("Z17 study", out["launches"],
+                   {"bottleneck_compress": n_comp, "bottleneck_decompress": n_comp})
+
+    # the Chrome trace of everything observed
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "study.json")
+        report.to_chrome_trace(trace_path)
+        with open(trace_path) as fh:
+            names = {e["name"] for e in json.load(fh)["traceEvents"]}
+    out["trace"] = {"spans": len(report.spans), "series": len(report.series_names()),
+                    "names": sorted(n for n in names if n.startswith("study."))}
+    if not {"study.calibrate", "study.adapt", "infer", "request"} <= names:
+        raise AssertionError(f"Z17 trace names {sorted(names)}")
+
+    # fit on a second study of the same model (quickstart's LC study), its
+    # first step replayed on the CPU at REPLAY_BATCH images
+    reset_launches()
+    lc = Study(model, params=params, device="cuda")
+    timed("fit", lambda: lc.fit(steps=STUDY_FIT_STEPS, batch=STUDY_FIT_BATCH,
+                                data_iter=toy_image_iter(STUDY_FIT_BATCH, hw=224,
+                                                         seed=STUDY_FIT_SEED)))
+    check_launches("Z17 fit", launch_counts(), {})
+    if lc._cs is not None or not all(torch.isfinite(t).all() for t in tree_leaves(lc.params)):
+        raise AssertionError("Z17 fit: non-finite weights, or a stage left cached")
+    x0, y0 = next(toy_image_iter(STUDY_FIT_BATCH, hw=224, seed=STUDY_FIT_SEED))
+    x0, y0 = torch.from_numpy(x0[:REPLAY_BATCH]), torch.from_numpy(y0[:REPLAY_BATCH])
+    loss, g = B.value_and_grad(lambda p: fit_loss(model, p, x0.cuda(), y0.cuda()), params)
+    loss_cpu, g_cpu = B.value_and_grad(lambda p: fit_loss(model, p, x0, y0), to_cpu(params))
+    out["fit_replay"] = {"loss_rel_err": abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu)),
+                         "grad_rel_err": leaf_gap(g, g_cpu)}
+    if (out["fit_replay"]["loss_rel_err"] > TRAIN_RTOL
+            or out["fit_replay"]["grad_rel_err"] > GRAD_RTOL):
+        raise AssertionError(f"Z17 fit replay: {out['fit_replay']} (bars {TRAIN_RTOL} for the "
+                             f"loss, {GRAD_RTOL} for the gradient)")
+    print(card, flush=True)
+    print("Z17 verbs", json.dumps(verbs), flush=True)
+    del study, lc, rt, srv, g, g_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
 def live_pairs(sq, sk, causal, window) -> int:
     """Query-key pairs the mask leaves live (queries at the last Sq keys)."""
     p = np.arange(sq) + (sk - sq)
@@ -1937,6 +2154,11 @@ def main() -> int:
     print(f"Z16 took {time.perf_counter() - t0:.1f} s", flush=True)
     del model, params, params_cpu, aes, xs, ys, table
     torch.cuda.empty_cache()
+    # Z17: the Study facade at full width, counted
+    t0 = time.perf_counter()
+    study = study_facade(card)
+    print("Z17 study", json.dumps(study), flush=True)
+    print(f"Z17 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the kernels line: launches from each kernel's main path
     paths = {"bottleneck_compress": ("vgg16 phases 4-5", vgg_counts),
@@ -1949,6 +2171,7 @@ def main() -> int:
             **{f"Z15 {k}": c for k, c in faults["launches"].items()},
             "Z15 tail server": faults["tail_server"]["launches"],
             "Z16 fleet": fleet["launches"],
+            "Z17 study": study["launches"],
             "Z4 split": llama["split"]["launches"],
             f"Z8 {JAMBA}": jamba["launches"],
             f"Z8 {JAMBA} prefill": jamba["prefill_launches"],
