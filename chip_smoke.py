@@ -22,7 +22,8 @@ no install: it puts ``src/`` on the path itself).  Phases:
    each codec kernel launches 36 times in phases 4-5;
 5. serve 4 clients through ``run_clients`` and a 4-slot ``TailServer``;
 6. (Z2) hold ``flash_attention`` against its plain version at the
-   llama3.2-3b and jamba prefill shapes and four more masks (window,
+   llama3.2-3b, jamba and deepseek-moe-16b prefill shapes and four more
+   masks (window,
    non-causal, Sq < Sk, ragged), each in bf16 (the ``wgmma_bf16`` route) and
    f32 (``simt_f32``), timed beside ``scaled_dot_product_attention``; every
    bf16 row again on the mask-edge probe (``ref.flash_edge_probe``), where
@@ -44,24 +45,34 @@ no install: it puts ``src/`` on the path itself).  Phases:
 11. (Z7) hold ``mamba_scan`` against its plain version at the jamba-v0.1-52b
     prefill (zero state), a ragged S from a given state, a decode step and
     the prefill again with the served model's own A;
-12. (Z8) serve jamba-v0.1-52b with its dense FFN (``moe=None``; the MoE
-    layers wait for ROADMAP A13b) at full width and full depth in bf16
+12. (Z8) serve jamba-v0.1-52b with its dense FFN (``moe=None``; its MoE
+    on one card waits for a depth cut, ROADMAP A13c) at full width and full
+    depth in bf16
     through ``ServingEngine``, Z4's prompts, 16 new tokens each, each step's
     logits held against one full forward under Z4's rule; (Z9) the same in
     f32; (Z10) Z6's check for a one-period (8-layer) f32 copy of it;
-13. (Z11) the paper's split-point search on phase 4's VGG16 (the same
+13. (Z18a) serve deepseek-moe-16b (all 28 layers MoE, 64 routed experts
+    top-6 and 2 shared, capacity factor 1.25) at full width and depth in
+    bf16 through ``ServingEngine`` on Z4's prompts: the prefill must drop
+    (token, expert) pairs at capacity and the decode steps none, and each
+    step's logits are held under Z4's rule against a forward that routes
+    as the served run did (``served_forward``: the prompt in the prefill's
+    groups, each served token a group of its own); (Z18b) the same in f32
+    at 14 layers; (Z18c) Z6's check for a depth-2 f32 copy, its prefill
+    dropping pairs;
+14. (Z11) the paper's split-point search on phase 4's VGG16 (the same
     seed): Table I/II from ``core.stats``, held equal to the reference's
     (``VGG16_TOTALS_16``); the Grad-CAM CS curve over the 18 feature ops on
     16 toy images (``data.synthetic``), timed, run 6 times and held to the
     CPU's curve at 2 images; the candidates ``Study.candidates`` would rank;
-14. (Z12) ``train_bottleneck`` (Eq. 3) at the top SC candidate and at
+15. (Z12) ``train_bottleneck`` (Eq. 3) at the top SC candidate and at
     pool23, 50 steps at batch 8, the loss falling and the first 3 steps
     replayed on the CPU at 2 images; ``finetune`` (Eq. 4) at pool23, 3
     steps, held to ``finetune`` on the CPU from the same start, and its
     first 2 steps' gradients at 2 images to the CPU's; then a
     ``SplitRuntime`` at each trained cut with its AE and the int8 wire,
     through both codec kernels, held to the plain chain;
-15. (Z13) the paper's communication-aware simulator (§IV, Figs. 3-4) on the
+16. (Z13) the paper's communication-aware simulator (§IV, Figs. 3-4) on the
     same VGG16 with Z12's AEs: LC, RC and SC at both trained cuts, over TCP
     and UDP at 5 loss rates (``bench_protocol.py``'s channel), 64 toy
     images, "accuracy" read as agreement with the unsplit model; each
@@ -69,13 +80,13 @@ no install: it puts ``src/`` on the path itself).  Phases:
     per-chunk inference held to the CPU's with the same loss masks, and
     Fig. 4's shape (TCP agreement flat and latency rising, UDP latency
     flat);
-16. (Z14) hardware-in-the-loop calibration (``runtime.calibrate``, fused) at
+17. (Z14) hardware-in-the-loop calibration (``runtime.calibrate``, fused) at
     batch 8 over relu1, pool16, pool23 and fc0_relu, the AE cuts through
     both codec kernels; the table's JSON round trip, each cut's frame
     length, its measured cells priced through ``measure_flow`` beside the
     analytic ``server-gpu`` profile, fed to the simulator, and
     ``HILPlatform.measure`` of the unsplit forward;
-17. (Z15) fault recovery in the split runtime (``SplitRuntime(faults=,
+18. (Z15) fault recovery in the split runtime (``SplitRuntime(faults=,
     recovery=)``, a twin of ``benchmarks/bench_faults.py``) at both trained
     AE cuts, 16 requests at batch 1: with no faults the SEI1 frames byte for
     byte and fused logits equal to eager; under the chaos plan every request
@@ -84,14 +95,14 @@ no install: it puts ``src/`` on the path itself).  Phases:
     to a CPU run of the same plan; under a blackout every request on the
     local fallback; then a 4-slot ``TailServer(faults=)`` that rejects
     corrupted frames and serves nothing inside a blackout window;
-18. (Z16) the fleet layers (twins of ``examples/fleet_planning.py`` and
+19. (Z16) the fleet layers (twins of ``examples/fleet_planning.py`` and
     ``examples/adaptive_replanning.py``): ``DeploymentPlanner`` over three
     device classes and a 1000-request diurnal trace, its accuracy legs on the
     card over Z13's images, its server stage priced by Z14's table; the event
     and vectorized cluster engines held together on the suggested plans, the
     card's plan points to a CPU planner's over 2 images, and
     ``AdaptiveController.from_planner`` deciding the same under both engines;
-19. (Z17) the paper's design flow through the ``Study`` facade (twins of
+20. (Z17) the paper's design flow through the ``Study`` facade (twins of
     ``examples/quickstart.py``, ``examples/multi_tier.py``,
     ``tests/test_obs.py::test_study_observe_fleet_and_runtime`` and
     ``benchmarks/bench_api.py``'s hand-stitched comparison) on phase 4's
@@ -105,10 +116,10 @@ no install: it puts ``src/`` on the path itself).  Phases:
     (held to the plain chain) and a 4-slot tail server for 4 clients; the
     Chrome trace's span names; then ``fit`` on a second study, its first
     step replayed on the CPU; each verb's host seconds and peak memory;
-20. print the kernels' launch counts with their errors, times and bounds as
+21. print the kernels' launch counts with their errors, times and bounds as
     one JSON line, then ``{"ok": true, "device": ...}``.
 
-Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z11, Z12's training and its
+Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18, Z11, Z12's training and its
 deploy, Z13, Z14, each part of Z15, Z16, Z17 and its ``fit``) runs with the
 launch counts set to 0 just before it and read just after; a served run's
 prefill and decode are counted apart as well, and ``flash_attention``'s
@@ -159,6 +170,7 @@ from repro_torch.kernels import bottleneck_decompress as decomp  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as RS  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layered import transformer_as_layered  # noqa: E402
 from repro_torch.data.synthetic import toy_image_iter, toy_images  # noqa: E402
@@ -203,8 +215,9 @@ EXTRA_SHAPES = [("n1", 1, 512, 256), ("ragged_rows", 4237, 96, 48),
                 ("ragged_cols", 777, 300, 100), ("pool23_client", 2 * 14 * 14, 512, 256),
                 ("llama_cut14", LLAMA_CUT_ROWS, 3072, 1536)]
 # flash_attention at the llama3.2-3b prefill (B 4, S 2000, H 24, K 8, D 128),
-# at the jamba-v0.1-52b prefill (H 32, K 8: a GQA group of 4, not 3) and
-# around them: (label, B, Sq, Sk, H, K, D, causal, window, dtype)
+# at the jamba-v0.1-52b prefill (H 32, K 8: a GQA group of 4, not 3), at the
+# deepseek-moe-16b prefill (H 16, K 16: a GQA group of 1) and around them:
+# (label, B, Sq, Sk, H, K, D, causal, window, dtype)
 # Each mask also in f32, where the bar (1e-5) is far below what a key off by
 # one at the window's or the alignment's edge would move; the bf16 rows run
 # the mask-edge probe for that.
@@ -213,6 +226,8 @@ FLASH_SHAPES = [
     ("llama_f32", 4, 1000, 1000, 24, 8, 128, True, None, torch.float32),
     ("jamba_prefill", 4, 2000, 2000, 32, 8, 128, True, None, torch.bfloat16),
     ("jamba_prefill_f32", 4, 2000, 2000, 32, 8, 128, True, None, torch.float32),
+    ("deepseek_prefill", 4, 2000, 2000, 16, 16, 128, True, None, torch.bfloat16),
+    ("deepseek_prefill_f32", 4, 2000, 2000, 16, 16, 128, True, None, torch.float32),
     ("window512", 4, 2000, 2000, 24, 8, 128, True, 512, torch.bfloat16),
     ("window512_f32", 4, 2000, 2000, 24, 8, 128, True, 512, torch.float32),
     ("noncausal", 4, 1000, 1000, 24, 8, 128, False, None, torch.bfloat16),
@@ -250,9 +265,15 @@ MAMBA_SHAPES = [("jamba_prefill", 4, 2000, 8192, 16, False, False),
 # another order (fused multiply-adds, the kernel's own sum over d_state in
 # two lanes' partials) and exp as ex2.approx of a pre-scaled argument
 MAMBA_RTOL = 1e-5
-# jamba-v0.1-52b as served (configs.SERVED: every FFN the dense SwiGLU, its
-# MoE layers wait for ROADMAP A13b); Z4's prompts
+# jamba-v0.1-52b as served (configs.SERVED: every FFN the dense SwiGLU; its
+# MoE on one card waits for a depth cut, ROADMAP A13c); Z4's prompts
 JAMBA = "jamba-v0.1-52b"
+# Z18: deepseek-moe-16b (the reference's config: all 28 layers MoE, 64 routed
+# experts top-6 and 2 shared, capacity factor 1.25) on Z4's prompts, in bf16
+# at full depth and in f32 cut to DEEPSEEK_F32_LAYERS (the full-depth f32
+# weights, 67.5 GB, and one stacked expert leaf, 20.7 GB, do not fit)
+DEEPSEEK = "deepseek-moe-16b"
+DEEPSEEK_F32_LAYERS = 14
 SERVED_CUTS = (16, 23, 33)
 HEADLINE = "pool23"           # the shape whose numbers head each kernel's entry
 # each codec kernel's launches in phases 4-5: 3 cuts x (1 + 3 timed) in the
@@ -1791,14 +1812,59 @@ def check_flash_route(what, counts, dtype, n) -> dict:
     return want
 
 
-def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
+def served_forward(params, cfg, seq, n_prompt) -> tuple:
+    """The final-normed x (B,S,D) that a served run computes over ``seq``
+    (the prompt's ``n_prompt`` tokens, then the served ones), and the
+    (token, expert) pairs each MoE layer drops, ``{"prefill": [...],
+    "decode": [...]}``.  ``T.forward`` but for the MoE layers: a prefill
+    routes the prompt in its own groups (one row of ``n_prompt`` tokens)
+    and each decode step routes its token as a group of its own, where one
+    forward over ``seq`` would group prompt and served tokens together, at
+    another capacity, and drop other prompt tokens.  So the MoE of the
+    prompt positions runs at the default ``group_chunk`` and that of each
+    served position at ``group_chunk=1``.  Without MoE it is ``T.forward``."""
+    if cfg.moe is None:
+        return T.forward(params, cfg, {"tokens": seq})["x"], {}
+    descs, n_groups = T.block_structure(cfg)
+    x, positions, _ = T.embed_inputs(params, cfg, {"tokens": seq})
+    drops = {"prefill": [], "decode": []}
+    for g in range(n_groups):
+        group_p = T._group(params["layers"], g)
+        for j, desc in enumerate(descs):
+            p = group_p[f"l{j}"]
+            if desc.ffn != "moe":
+                x, _, _ = T.apply_layer_seq(p, desc, x, cfg, positions,
+                                            window=cfg.sliding_window)
+                continue
+            if desc.mixer != "attn":
+                raise NotImplementedError("an MoE layer behind a Mamba mixer (ROADMAP A13c)")
+            h = T._apply_norm(p["norm1"], x, cfg)
+            x = x + T._attn_seq(p["attn"], h, cfg, positions, causal=True,
+                                window=cfg.sliding_window)[0]
+            h = T._apply_norm(p["norm2"], x, cfg)
+            f = []
+            for phase, part, chunk in (("prefill", h[:, :n_prompt], M.GROUP_CHUNK),
+                                       ("decode", h[:, n_prompt:], 1)):
+                if part.shape[1]:
+                    f.append(M.moe_ffn(part, p["ffn"], cfg.moe, group_chunk=chunk)[0])
+                    drops[phase].append(int(M.dropped_pairs(part, p["ffn"], cfg.moe,
+                                                            group_chunk=chunk)))
+            x = x + torch.cat(f, dim=1)
+    return T._apply_norm(params["final_norm"], x, cfg), drops
+
+
+def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
     """Z4 / Z5 / Z8 / Z9: full-width, full-depth serving of ``arch`` through
     ``ServingEngine``; every kernel launches as ``per_token_launches`` says,
     in the served run and in a prefill and the decode steps counted apart.
     The served tokens are then fed through prefill + serve_step again, and
     the logits of each step held against one full forward over prompt +
-    served tokens (see ``ZOO_RTOL``)."""
-    cfg = served_cfg(arch, dtype=dtype)
+    served tokens (see ``ZOO_RTOL``), with an MoE model's tokens routed as
+    the served run routed them (``served_forward``).  Z18: an MoE model's
+    prefill must drop pairs at capacity, its decode steps none.
+    ``n_layers`` cuts the depth."""
+    t_phase = time.perf_counter()
+    cfg = served_cfg(arch, dtype=dtype, **({"n_layers": n_layers} if n_layers else {}))
     per_prefill, per_step = per_token_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1808,7 +1874,8 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "param_gb": sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9,
            "prompt_lens": list(prompt_lens), "new_tokens": NEW_TOKENS,
-           "n_layers": cfg.n_layers, "moe": cfg.moe}
+           "n_layers": cfg.n_layers,
+           "moe": None if cfg.moe is None else dataclasses.asdict(cfg.moe)}
     torch.cuda.reset_peak_memory_stats()      # peak_gb: serving, the weights included
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
@@ -1871,15 +1938,28 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
             out["decode_step_profile"] = device_breakdown(
                 lambda: T.serve_step(params, cfg, cache, served[:, :1], pos))
             del cache
-        # one full forward over prompt + served tokens, and the same forward
-        # with its input moved by one rounding
+        # one full forward over prompt + served tokens, routed as served, and
+        # the same forward with its input moved by one rounding (in bf16 that
+        # response takes in the routes that one rounding flips)
         seq = torch.cat([toks, served[:, :-1]], dim=1)
-        x = T.forward(params, cfg, {"tokens": seq})["x"][:, toks.shape[1] - 1:]
-        flogits = T.logits_from_x(params, cfg, x).float()
+        x, drops = served_forward(params, cfg, seq, toks.shape[1])
+        flogits = T.logits_from_x(params, cfg, x[:, toks.shape[1] - 1:]).float()
         flipped = {**params, "embed": ulp_flip(params["embed"])}
-        x = T.forward(flipped, cfg, {"tokens": seq})["x"][:, toks.shape[1] - 1:]
+        x, _ = served_forward(flipped, cfg, seq, toks.shape[1])
+        x = x[:, toks.shape[1] - 1:]
         ulp_err = float((T.logits_from_x(flipped, cfg, x).float() - flogits).abs().max())
         del flipped, x
+    if cfg.moe is not None:
+        pairs, layers = toks.numel() * cfg.moe.top_k, len(drops["prefill"])
+        out["moe_drops"] = {"prefill_by_layer": drops["prefill"], "pairs_a_layer": pairs,
+                            "prefill_share": sum(drops["prefill"]) / (pairs * layers),
+                            "decode": sum(drops["decode"]),
+                            "capacity": M.group_capacity(toks.shape[1], cfg.moe)}
+        print(f"{arch} {dtype}: prefill drops by layer {drops['prefill']} of {pairs} pairs, "
+              f"decode drops {sum(drops['decode'])}", flush=True)
+        if sum(drops["prefill"]) == 0 or sum(drops["decode"]) != 0:
+            raise AssertionError(f"{arch} {dtype}: drops {drops}; want some in the prefill, "
+                                 f"none in the decode steps")
     top = float(flogits.abs().max())
     row_err = (steps - flogits).abs().amax(-1)                 # (B, NEW_TOKENS)
     rel = float(row_err.max()) / top
@@ -1903,10 +1983,13 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16") -> dict:
         raise AssertionError(f"{arch} {dtype}: served tokens differ from the forward's at "
                              f"margins {margins[differ].tolist()}")
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{arch} {dtype}: one-ulp response {out['vs_forward']['one_ulp_input_response']} "
+          f"of max |logit|, bar {bar}, step error {rel}", flush=True)
     if arch.startswith("llama") and dtype == "bfloat16":
         out["split"] = split_lens(cfg, params, toks)
     del params
     torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2011,12 +2094,21 @@ def e2e_check(arch, n_layers=2, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> d
                 break
     if step_err > rtol:
         raise AssertionError(f"Z6 {arch}: decode logits off by {step_err} of max (bar {rtol})")
+    out = {"arch": arch, "n_layers": n_layers, "dtype": "float32",
+           "prompt_lens": list(prompt_lens),
+           "new_tokens": n_new, "prefill_rel_err": prefill_err, "step_rel_err": step_err,
+           "tokens_compared": compared, "diverged_at_near_ties": diverged, "launches": counts}
+    if cfg.moe is not None:
+        # Z18c: the prompt's drops at capacity, on the card (uncounted)
+        with torch.inference_mode():
+            drops = served_forward(params_gpu, cfg, toks.cuda(), toks.shape[1])[1]["prefill"]
+        out["prefill_drops_by_layer"] = drops
+        out["capacity"] = M.group_capacity(toks.shape[1], cfg.moe)
+        if sum(drops) == 0:
+            raise AssertionError(f"Z18c {arch}: the prefill dropped no pair")
     del params_gpu
     torch.cuda.empty_cache()
-    return {"arch": arch, "n_layers": n_layers, "dtype": "float32",
-            "prompt_lens": list(prompt_lens),
-            "new_tokens": n_new, "prefill_rel_err": prefill_err, "step_rel_err": step_err,
-            "tokens_compared": compared, "diverged_at_near_ties": diverged, "launches": counts}
+    return out
 
 
 def main() -> int:
@@ -2111,6 +2203,18 @@ def main() -> int:
     # jamba cut to one period: 1 attention and 7 Mamba layers
     e2e.append(e2e_check(JAMBA, n_layers=len(T.block_structure(served_cfg(JAMBA))[0])))
     print("end to end", json.dumps(e2e), flush=True)
+    # Z18: deepseek-moe-16b, its MoE at the served capacity factor: (a) bf16
+    # at full width and depth, (b) f32 cut in depth, (c) Z6's check at depth 2
+    deep = serve_zoo(DEEPSEEK, LLAMA_PROMPTS)
+    print(f"Z18a served {DEEPSEEK}", json.dumps(deep), flush=True)
+    print(f"Z18a took {deep['phase_s']:.1f} s", flush=True)
+    deep32 = serve_zoo(DEEPSEEK, LLAMA_PROMPTS, dtype="float32", n_layers=DEEPSEEK_F32_LAYERS)
+    print(f"Z18b served {DEEPSEEK} float32", json.dumps(deep32), flush=True)
+    print(f"Z18b took {deep32['phase_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    deep_e2e = e2e_check(DEEPSEEK)
+    print(f"Z18c end to end {DEEPSEEK}", json.dumps(deep_e2e), flush=True)
+    print(f"Z18c took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Z11, Z12: the split-point search, bottleneck training and the deploy
     # of the trained AEs, on phase 4's VGG16 (the same seed), last so that
@@ -2177,7 +2281,11 @@ def main() -> int:
             f"Z8 {JAMBA} prefill": jamba["prefill_launches"],
             f"Z8 {JAMBA} decode": jamba["decode_launches"],
             **{f"{arch} float32": f32[arch]["launches"] for arch in f32},
-            **{f"Z6 {e['arch']} depth {e['n_layers']}": e["launches"] for e in e2e}}
+            **{f"Z6 {e['arch']} depth {e['n_layers']}": e["launches"] for e in e2e},
+            f"Z18a {DEEPSEEK}": deep["launches"],
+            f"Z18a {DEEPSEEK} prefill": deep["prefill_launches"],
+            f"Z18b {DEEPSEEK} float32 depth {DEEPSEEK_F32_LAYERS}": deep32["launches"],
+            f"Z18c {DEEPSEEK} depth 2": deep_e2e["launches"]}
 
     def entry(name, rows, replaces, headline):
         head = next(e for e in rows if e["shape"] == headline)

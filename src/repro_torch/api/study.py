@@ -47,8 +47,9 @@ transformer ``ModelConfig`` (viewed through ``transformer_as_layered``),
 or a config name: ``"vgg16"`` builds the small trainable VGG variant, any
 ``repro_torch.configs`` arch name (``"llama3.2-3b"``, ``"rwkv6-1.6b"``,
 ...) resolves through the registry and is reduced to its small variant
-unless ``reduce=False``.  A family the port does not serve yet (MoE,
-encoder-decoder, VLM) raises ``NotImplementedError`` naming its ROADMAP
+unless ``reduce=False``.  A family the port does not serve yet
+(encoder-decoder, VLM), or a name it does not serve yet
+(qwen3-moe-235b-a22b), raises ``NotImplementedError`` naming its ROADMAP
 item.
 
 Everything the study makes lives on ``device`` (default ``"cuda"``; on a
@@ -93,16 +94,12 @@ def _platform(p) -> PlatformProfile:
 
 
 def _check_served(cfg) -> None:
-    """Raise for a config whose family (or FFN) the port does not serve."""
+    """Raise for a config whose family the port does not serve."""
     from repro_torch.configs import ROADMAP_ITEM
     if cfg.family in ROADMAP_ITEM:
         raise NotImplementedError(
             f"{cfg.name} is of the {cfg.family} family, which the port does not "
             f"serve yet (ROADMAP {ROADMAP_ITEM[cfg.family]})")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name} has MoE layers, which the port does not serve yet (ROADMAP "
-            f"A13b); configs.SERVED names the dense-FFN variant it serves")
 
 
 def fit_loss(model, params, x, y) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Config registry (twin of ``repro/configs/__init__.py``):
 ``get_config("<arch-id>")`` knows the same ten names.
 
-The port serves the ``dense``, ``ssm`` and ``hybrid`` families.  A name of
-another family raises ``NotImplementedError`` until its modules are ported:
-MoE in ROADMAP A13b, encoder-decoder and VLM in A17.  jamba-v0.1-52b's
-config carries its MoE; building it raises at the first MoE layer (A13b),
-and the port serves it with the changes in ``SERVED``
+The port serves the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families.
+A name in ``UNPORTED`` raises ``NotImplementedError`` naming the ROADMAP
+item that serves it: encoder-decoder and VLM wait for A17, and
+qwen3-moe-235b-a22b for a depth cut and its attention shape on the card
+(A13d).  jamba-v0.1-52b's config carries its MoE and builds with it; the
+card serves it with the changes in ``SERVED``
 (``dataclasses.replace(cfg, moe=None)``, every FFN the dense SwiGLU).
 """
 from __future__ import annotations
@@ -24,17 +25,17 @@ ARCHS = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "llama3-8b": "llama3_8b",
 }
-# the family of each name the port does not serve yet
+# the ROADMAP item that ports each family the port does not serve yet
+ROADMAP_ITEM = {"encdec": "A17", "vlm": "A17"}
+# each name the port does not serve yet: (its family, the ROADMAP item)
 UNPORTED = {
-    "internvl2-76b": "vlm",
-    "deepseek-moe-16b": "moe",
-    "whisper-tiny": "encdec",
-    "qwen3-moe-235b-a22b": "moe",
+    "internvl2-76b": ("vlm", ROADMAP_ITEM["vlm"]),
+    "whisper-tiny": ("encdec", ROADMAP_ITEM["encdec"]),
+    "qwen3-moe-235b-a22b": ("moe", "A13d"),
 }
-# the ROADMAP item that ports each family
-ROADMAP_ITEM = {"moe": "A13b", "encdec": "A17", "vlm": "A17"}
-# what the port changes in a config to serve it: jamba's MoE layers wait for
-# ROADMAP A13b, so every FFN is the dense SwiGLU
+# what the port changes in a config to serve it on one card: jamba with its
+# MoE (51.5 B parameters, 103 GB in bf16) does not fit one, so every FFN is
+# the dense SwiGLU until its MoE layers run at a depth cut (ROADMAP A13c)
 SERVED = {"jamba-v0.1-52b": {"moe": None}}
 
 
@@ -42,8 +43,8 @@ def get_config(name: str):
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     if name in UNPORTED:
-        family = UNPORTED[name]
-        raise NotImplementedError(f"{name} is of the {family} family, which the port does "
-                                  f"not serve yet (ROADMAP {ROADMAP_ITEM[family]})")
+        family, item = UNPORTED[name]
+        raise NotImplementedError(f"{name} (of the {family} family) is not served by the "
+                                  f"port yet (ROADMAP {item})")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
     return mod.CONFIG

@@ -85,7 +85,9 @@ def mamba_seq(p, x, cfg, init_state=None):
     y, h = ops.mamba_scan_op(dt, bm, cm, xf, a, h0)
     y = y + p["D"] * xf
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
-    return y, (xp[:, s:].float(), h)
+    # a copy: in f32 a view of xp would keep the layer's whole (B, S, di)
+    # input alive in the prefill's cache entry
+    return y, (xp[:, s:].to(torch.float32, copy=True), h)
 
 
 def mamba_step(p, x, state, cfg):

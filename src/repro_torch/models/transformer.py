@@ -7,9 +7,10 @@ families (twin of ``repro/models/transformer.py``).
 Parameters keep the reference's group-stacked tree: every leaf under
 ``params["layers"]`` has a leading group axis.  Where the reference scans
 over groups with ``jax.lax.scan``, the port runs a Python loop over them.
-The hybrid family runs with its dense FFN (jamba with ``moe=None``).  The
-MoE branches raise ``NotImplementedError`` until ROADMAP A13b ports them;
-the cross-attention, encoder and VLM branches until ROADMAP A17 does.
+An MoE layer runs ``moe.moe_ffn`` as the reference does: its aux loss is
+summed over the layers of a forward and dropped at decode, where each
+token is a dispatch group of its own.  The cross-attention, encoder and VLM
+branches raise ``NotImplementedError`` until ROADMAP A17 ports them.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (apply_rope, attention, decode_attention, dense,
@@ -26,8 +28,8 @@ from repro_torch.models.layers import (apply_rope, attention, decode_attention, 
                                        rope_tables, swiglu)
 
 
-def _unported(what: str, item: str = "A17") -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A17)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +90,7 @@ def init_layer(gen, desc: LayerDesc, cfg: ModelConfig, device) -> dict:
     if desc.ffn == "dense":
         p["ffn"] = init_swiglu(gen, d, cfg.d_ff, dt, device)
     elif desc.ffn == "moe":
-        raise _unported("the MoE FFN", "A13b")
+        p["ffn"] = moe_mod.init_moe(gen, d, cfg.moe, dt, device)
     return p
 
 
@@ -178,7 +180,7 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
     if desc.ffn == "dense":
         f = swiglu(h, p["ffn"])
     elif desc.ffn == "moe":
-        raise _unported("the MoE FFN", "A13b")
+        f, aux = moe_mod.moe_ffn(h, p["ffn"], cfg.moe)
     else:  # rwkv channel mix
         f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, torch.zeros_like(h[:, 0]))
         if collect_cache:
@@ -313,7 +315,7 @@ def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
     if desc.ffn == "dense":
         f = swiglu(h, p["ffn"])
     elif desc.ffn == "moe":
-        raise _unported("the MoE FFN", "A13b")
+        f, _ = moe_mod.moe_ffn(h, p["ffn"], cfg.moe)
     else:
         f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, cache_l["cm_prev"].to(h.dtype))
         cache_l["cm_prev"].copy_(cm_prev)

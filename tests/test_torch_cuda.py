@@ -310,7 +310,8 @@ def test_mamba_scan_matches_plain(cuda, shape):
     assert float((final - want_st).abs().max()) <= 1e-5 * float(want_st.abs().max())
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b", "jamba-v0.1-52b",
+                                  "deepseek-moe-16b"])
 def test_zoo_serving_on_the_card_matches_the_cpu_path(cuda, arch):
     import dataclasses
     # the head dims the kernels take: 128 (dense), 64 (rwkv)
@@ -325,7 +326,8 @@ def test_zoo_serving_on_the_card_matches_the_cpu_path(cuda, arch):
         [Request(i, p, max_new=4) for i, p in enumerate(prompts)])
     counts = launch_counts()
     kernels = {"llama3.2-3b": ["flash_attention"], "rwkv6-1.6b": ["rwkv6_scan"],
-               "jamba-v0.1-52b": ["flash_attention", "mamba_scan"]}[arch]
+               "jamba-v0.1-52b": ["flash_attention", "mamba_scan"],
+               "deepseek-moe-16b": ["flash_attention"]}[arch]
     assert all(sum(counts[k].values()) > 0 for k in kernels)
     want = ServingEngine(cfg, params_cpu, cache_slots=80, device="cpu").run(
         [Request(i, p, max_new=4) for i, p in enumerate(prompts)])

@@ -1,9 +1,10 @@
 """The port's ``Study`` facade (``api/study.py``, a twin) and its lazy
 export map (``api/__init__.py``) against the JAX package's, with the same
 weights: the small VGG of ``tests/conftest.py`` (its weights drawn with
-numpy in the reference's tree), and reduced llama3.2-3b and rwkv6-1.6b
-whose backbones are the reference's ``T.init_params(PRNGKey(0), ...)``,
-moved over with ``transformer_params_from_numpy``.  Every port study runs
+numpy in the reference's tree), and reduced llama3.2-3b, rwkv6-1.6b and
+deepseek-moe-16b (at the served capacity factor) whose backbones are the
+reference's ``T.init_params(PRNGKey(0), ...)``, moved over with
+``transformer_params_from_numpy``.  Every port study runs
 with ``device="cpu"``.  The reference's saliency maps run under
 ``jax.jit`` (one compile a model, as in ``tests/test_torch_saliency.py``).
 
@@ -45,6 +46,7 @@ from repro_torch.api import study as TS  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs import vgg16_cifar10 as TV  # noqa: E402
 from repro_torch.data.synthetic import toy_image_iter, toy_images  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import reduced  # noqa: E402
 from repro_torch.netsim import channel as TC  # noqa: E402
 from repro_torch.netsim.simulator import flow_latency_s, measure_flow  # noqa: E402
@@ -61,7 +63,7 @@ CS_ATOL = 1e-5
 REL = 1e-9
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
-CHAIN_NAMES = ["vgg16", "llama3.2-3b", "rwkv6-1.6b"]
+CHAIN_NAMES = ["vgg16", "llama3.2-3b", "rwkv6-1.6b", "deepseek-moe-16b"]
 PKGS = {"ref": (JA, JF, JC), "port": (TA, TF, TC)}
 LINK_QOS = dict(max_latency_s=10.0, min_accuracy=0.0)
 FLEET_SPACE = dict(protocols=("tcp", "udp"), batch_sizes=(1, 4), replica_counts=(1, 2))
@@ -176,12 +178,27 @@ def test_chain_facade_equals_the_hand_stitched_calls(chain):
 
 
 @pytest.mark.parametrize("name, item", [("whisper-tiny", "A17"),
-                                        ("deepseek-moe-16b", "A13b"),
-                                        ("internvl2-76b", "A17"),
-                                        ("jamba-v0.1-52b", "A13b")])
+                                        ("qwen3-moe-235b-a22b", "A13d"),
+                                        ("internvl2-76b", "A17")])
 def test_unserved_families_raise(name, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
         TS.Study(name, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "jamba-v0.1-52b"])
+def test_moe_configs_are_served(name):
+    """A config with MoE layers (jamba with its MoE, not configs.SERVED's
+    dense variant) builds its study: the reduced f32 backbone, MoE leaves
+    and all, drawn from the study's seed, and the view's logits are the
+    backbone's own forward's."""
+    s = TS.Study(name, seq_len=16, batch=2, device="cpu")
+    assert s.cfg.moe is not None and s.cfg.dtype == "float32"
+    backbone = T.init_params(s.seed, s.cfg, device="cpu")
+    assert "router" in backbone["layers"][f"l{s.cfg.moe.moe_every - 1}"]["ffn"]
+    with torch.inference_mode():
+        got = s.model.apply(s.params, s._x)
+        want = T.logits_from_x(backbone, s.cfg, T.forward(backbone, s.cfg, s._x)["x"])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_a_config_passed_directly_is_checked():

@@ -1,9 +1,11 @@
-"""The port's transformer zoo (reduced llama3.2-3b, rwkv6-1.6b and
-jamba-v0.1-52b with its dense FFN) on the CPU against the JAX package with
-the same weights: forward, prefill + decode, the layered view, the serving
-engine and the parameter crossing."""
+"""The port's transformer zoo (reduced llama3.2-3b, rwkv6-1.6b,
+deepseek-moe-16b, and jamba-v0.1-52b with its dense FFN and with its MoE)
+on the CPU against the JAX package with the same weights: forward, prefill
++ decode, the layered view, the serving engine and the parameter crossing.
+Every MoE layer runs at the served capacity factor (the config's 1.25)."""
 import ast
 import dataclasses
+import functools
 from pathlib import Path
 
 import pytest
@@ -20,7 +22,8 @@ from repro.models.common import reduced as jreduced  # noqa: E402
 from repro.models.layered import transformer_as_layered as j_layered  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
-from repro_torch.configs import ARCHS, SERVED, get_config  # noqa: E402
+from repro_torch.configs import ARCHS, SERVED, UNPORTED, get_config  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import reduced  # noqa: E402
 from repro_torch.models.layered import transformer_as_layered  # noqa: E402
@@ -29,14 +32,22 @@ from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHES = ["llama3.2-3b", "rwkv6-1.6b"]
-PAIR_ARCHES = ARCHES + ["jamba-v0.1-52b"]
+# each pair: (arch, the changes to its config); jamba twice, as the card
+# serves it (configs.SERVED: every FFN the dense SwiGLU) and with its MoE
+PAIRS = {"llama3.2-3b": ("llama3.2-3b", {}), "rwkv6-1.6b": ("rwkv6-1.6b", {}),
+         "jamba-v0.1-52b": ("jamba-v0.1-52b", SERVED["jamba-v0.1-52b"]),
+         "deepseek-moe-16b": ("deepseek-moe-16b", {}),
+         "jamba-v0.1-52b-moe": ("jamba-v0.1-52b", {})}
+DENSE_PAIRS = ARCHES + ["jamba-v0.1-52b"]
+MOE_PAIRS = ["deepseek-moe-16b", "jamba-v0.1-52b-moe"]
 # f32 logits: the two frameworks sum in other orders (1e-3, as
 # tests/test_serving_consistency.py holds prefill + decode to forward)
 TOL = 1e-3
 
 
-def _pair(arch, dtype="float32", **overrides):
-    overrides = {**SERVED.get(arch, {}), **overrides}
+def _pair(name, dtype="float32", **overrides):
+    arch, changes = PAIRS[name]
+    overrides = {**changes, **overrides}
     cfg = dataclasses.replace(reduced(get_config(arch)), dtype=dtype, **overrides)
     jcfg = dataclasses.replace(jreduced(jget_config(arch)), dtype=dtype, **overrides)
     jp = JT.init_params(jax.random.PRNGKey(1), jcfg)
@@ -44,9 +55,26 @@ def _pair(arch, dtype="float32", **overrides):
     return cfg, jcfg, tp, jp
 
 
-@pytest.fixture(scope="module", params=PAIR_ARCHES)
+@functools.lru_cache(maxsize=None)
+def _f32_pair(name):
+    """The f32 pair of ``name``, built once a process for the fixtures below
+    (no test writes into its parameters)."""
+    return _pair(name)
+
+
+@pytest.fixture(scope="module", params=list(PAIRS))
 def pair(request):
-    return _pair(request.param)
+    return _f32_pair(request.param)
+
+
+@pytest.fixture(scope="module", params=DENSE_PAIRS)
+def dense_pair(request):
+    return _f32_pair(request.param)
+
+
+@pytest.fixture(scope="module", params=MOE_PAIRS)
+def moe_pair(request):
+    return _f32_pair(request.param)
 
 
 def _tokens(cfg, b, s, seed):
@@ -83,10 +111,65 @@ def _check_prefill_decode(cfg, tp, gt, toks, n_prompt, cache_len):
             np.testing.assert_allclose(logits.numpy(), gt[:, i], rtol=TOL, atol=TOL)
 
 
-def test_prefill_then_decode_reproduces_the_reference_forward(pair):
-    cfg, jcfg, tp, jp = pair
+def test_prefill_then_decode_reproduces_the_reference_forward(dense_pair):
+    cfg, jcfg, tp, jp = dense_pair
     toks = _tokens(cfg, 2, 24, 4)
     _check_prefill_decode(cfg, tp, _jlogits(jp, jcfg, toks), toks, 16, 64)
+
+
+def test_moe_prefill_then_decode_equal_the_reference_prefill_and_serve_step(moe_pair):
+    """An MoE model's decode cannot reproduce its forward: the prefill routes
+    the prompt in groups of the prompt's length, where a full forward would
+    group prompt and decoded tokens together (other capacities, other
+    drops), and each decode step is a group of one.  So prefill + decode is
+    held against the reference's own ``prefill`` + ``serve_step``."""
+    cfg, jcfg, tp, jp = moe_pair
+    toks = _tokens(cfg, 2, 24, 4)
+    n_prompt, cache_len = 16, 64
+    with torch.inference_mode():
+        logits, cache, pos = T.prefill(tp, cfg, {"tokens": torch.from_numpy(toks[:, :n_prompt])},
+                                       cache_len)
+        # the reference under jax.jit, as its engine runs it (op by op each
+        # primitive compiles on its own)
+        jprefill = jax.jit(JT.prefill, static_argnums=(1, 3))
+        jstep = jax.jit(JT.serve_step, static_argnums=(1,))
+        jlogits, jcache, jpos = jprefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :n_prompt])},
+                                         cache_len)
+        assert pos == int(jpos) == n_prompt
+        np.testing.assert_allclose(logits.float().numpy(), np.asarray(jlogits, np.float32),
+                                   rtol=TOL, atol=TOL)
+        for i in range(n_prompt, toks.shape[1]):
+            logits, cache = T.serve_step(tp, cfg, cache, torch.from_numpy(toks[:, i:i + 1]), i)
+            jlogits, jcache = jstep(jp, jcfg, jcache, jnp.asarray(toks[:, i:i + 1]),
+                                    jnp.asarray(i, jnp.int32))
+            np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=TOL, atol=TOL)
+
+
+def _counting_drops(monkeypatch):
+    """Count, layer by layer, the pairs each ``moe_ffn`` call drops."""
+    drops, plain = [], M.moe_ffn
+
+    def counted(x, p, m, **kw):
+        drops.append(int(M.dropped_pairs(x, p, m, **kw)))
+        return plain(x, p, m, **kw)
+    monkeypatch.setattr(M, "moe_ffn", counted)
+    return drops
+
+
+def test_moe_pairs_drop_at_the_served_capacity(moe_pair, monkeypatch):
+    """The forward tests' prompts overflow an expert in at least one MoE
+    layer, so the drop path is held against the reference; a decode step,
+    one token a group, drops nothing."""
+    cfg, _, tp, _ = moe_pair
+    drops = _counting_drops(monkeypatch)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    with torch.inference_mode():
+        _, cache, pos = T.prefill(tp, cfg, {"tokens": torch.from_numpy(_tokens(cfg, 2, 24, 3))},
+                                  32)
+        assert len(drops) == n_moe and sum(drops) > 0, drops
+        drops.clear()
+        T.serve_step(tp, cfg, cache, torch.from_numpy(_tokens(cfg, 2, 1, 5)), pos)
+    assert len(drops) == n_moe and sum(drops) == 0
 
 
 def test_sliding_window_decode_matches_windowed_reference_forward():
@@ -98,13 +181,35 @@ def test_sliding_window_decode_matches_windowed_reference_forward():
     _check_prefill_decode(cfg, tp, gt, toks, 16, 24)
 
 
-@pytest.mark.parametrize("arch", ARCHES)
+def _zero_routers(tree, zeros):
+    if isinstance(tree, dict):
+        return {k: zeros(v) if k == "router" else _zero_routers(v, zeros)
+                for k, v in tree.items()}
+    return tree
+
+
+@pytest.mark.parametrize("arch", ARCHES + MOE_PAIRS)
 def test_bf16_forward_stays_near_the_reference(arch):
     """bf16 weights and activations: the two frameworks round intermediates
     at other places (measured: 0.9% of max |logit| for llama, 2.9% for rwkv,
     whose decay exp(-exp(.)) magnifies them), so the bar is 5e-2 of max
-    |logit| and the same argmax at 90% of positions."""
+    |logit| and the same argmax at 90% of positions.
+
+    The MoE pairs run with their routers zeroed.  With a random router, a
+    rounding at a near tie sends a token to another expert: the reference
+    moves its own bf16 logits by 2-23% of max under one rounding of its
+    input (every embedding entry's last bit, token seeds 6-9), and the port
+    lies that far from it.  A zero router routes by the tie rule alone
+    (experts 0..k-1, each taking its first ``capacity`` tokens and dropping
+    the rest), so this holds the bf16 arithmetic of the attention or Mamba
+    mixers, the experts, the shared experts, the gates and the drops
+    (measured over token seeds 6-13: 0.8-1.3% for deepseek, 2.8-4.0% for
+    jamba).  ``tests/test_torch_moe.py`` holds a random router in bf16 on
+    the same input at the layer."""
     cfg, jcfg, tp, jp = _pair(arch, dtype="bfloat16")
+    if cfg.moe is not None:
+        tp = _zero_routers(tp, torch.zeros_like)
+        jp = _zero_routers(jp, jnp.zeros_like)
     assert tp["embed"].dtype == torch.bfloat16
     toks = _tokens(cfg, 2, 16, 6)
     got, want = _logits(tp, cfg, toks), _jlogits(jp, jcfg, toks)
@@ -183,16 +288,25 @@ def test_bf16_leaves_cross_bit_for_bit_and_mismatched_trees_raise():
 
 
 def test_config_registry_knows_the_ten_names():
+    """Every name the port serves equals the reference's config (deepseek-moe-16b
+    among them, all 28 layers MoE as the reference keeps them); the rest raise
+    naming the ROADMAP item that serves them: qwen3-moe-235b-a22b its own
+    (A13d), encoder-decoder and VLM A17."""
     from repro.configs import ARCHS as JARCHS
     assert ARCHS == JARCHS
-    items = {"moe": "A13b", "encdec": "A17", "vlm": "A17"}
+    assert set(UNPORTED) == {"internvl2-76b", "whisper-tiny", "qwen3-moe-235b-a22b"}
     for name in ARCHS:
         jcfg = jget_config(name)
-        if jcfg.family in ("dense", "ssm", "hybrid"):
-            assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jcfg)
-        else:
-            with pytest.raises(NotImplementedError, match=f"ROADMAP {items[jcfg.family]}"):
+        if name in UNPORTED:
+            item = {"moe": "A13d", "encdec": "A17", "vlm": "A17"}[jcfg.family]
+            assert UNPORTED[name] == (jcfg.family, item)
+            with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP {item}\b"):
                 get_config(name)
+        else:
+            assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jcfg)
+    deepseek = get_config("deepseek-moe-16b")
+    assert deepseek.param_counts()["total"] == 16_879_568_896
+    assert all(deepseek.is_moe_layer(i) for i in range(deepseek.n_layers))
     with pytest.raises(KeyError):
         get_config("gpt-5")
 
@@ -202,14 +316,18 @@ def test_unported_branches_raise():
     for family in ("vlm", "encdec"):
         with pytest.raises(NotImplementedError, match="ROADMAP A17"):
             T.init_params(0, dataclasses.replace(cfg, family=family), device="cpu")
-    # jamba as configured: its MoE layers raise; with moe=None it builds
+    # jamba as configured builds with its MoE on every second layer; with
+    # moe=None (configs.SERVED) every FFN is dense
     jamba = reduced(get_config("jamba-v0.1-52b"))
-    for build in (lambda c: T.init_params(0, c, device="cpu"), T.param_spec):
-        with pytest.raises(NotImplementedError, match="MoE FFN.*ROADMAP A13b"):
-            build(jamba)
+    for spec in (T.param_spec(jamba), T.init_params(0, jamba, device="cpu")):
+        assert set(spec["layers"]) == {f"l{j}" for j in range(8)}
+        assert "attn" in spec["layers"]["l4"] and "mamba" in spec["layers"]["l0"]
+        assert [j for j in range(8) if "router" in spec["layers"][f"l{j}"]["ffn"]] == [1, 3, 5, 7]
+        w = spec["layers"]["l1"]["ffn"]
+        assert w["router"].dtype == torch.float32 and "shared" not in w
+        assert tuple(w["w_down"].shape) == (1, 4, 64, jamba.d_model)
     spec = T.param_spec(dataclasses.replace(jamba, moe=None))
-    assert set(spec["layers"]) == {f"l{j}" for j in range(8)}
-    assert "attn" in spec["layers"]["l4"] and "mamba" in spec["layers"]["l0"]
+    assert all("router" not in spec["layers"][f"l{j}"]["ffn"] for j in range(8))
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache", "transformer_params_from_numpy",
