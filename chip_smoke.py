@@ -22,13 +22,15 @@ no install: it puts ``src/`` on the path itself).  Phases:
    each codec kernel launches 36 times in phases 4-5;
 5. serve 4 clients through ``run_clients`` and a 4-slot ``TailServer``;
 6. (Z2) hold ``flash_attention`` against its plain version at the
-   llama3.2-3b, jamba and deepseek-moe-16b prefill shapes and four more
-   masks (window,
-   non-causal, Sq < Sk, ragged), each in bf16 (the ``wgmma_bf16`` route) and
-   f32 (``simt_f32``), timed beside ``scaled_dot_product_attention``; every
-   bf16 row again on the mask-edge probe (``ref.flash_edge_probe``), where
-   a key off by one at a causal, window or key-range edge moves the output
-   far past the bf16 bar;
+   llama3.2-3b, jamba, deepseek-moe-16b and internvl2-76b prefill shapes,
+   four more masks (window, non-causal, Sq < Sk, ragged) and whisper-tiny's
+   head dim 64 (its encoder, its decoder's self-attention, its
+   cross-attention with Sq > Sk, and a window), each in bf16 (the
+   ``wgmma_bf16`` route) and f32 (``simt_f32``), timed beside
+   ``scaled_dot_product_attention``; every bf16 row also within a bar
+   relative to |o| (``FLASH_BF16_STEP``) and again on the mask-edge probe
+   (``ref.flash_edge_probe``), where a key off by one at a causal, window
+   or key-range edge moves the output far past the bf16 bar;
 7. (Z3) hold ``rwkv6_scan`` against its plain version at the rwkv6-1.6b
    prefill and decode shapes, a ragged one and the prefill at the served
    model's decays;
@@ -60,6 +62,16 @@ no install: it puts ``src/`` on the path itself).  Phases:
     groups, each served token a group of its own); (Z18b) the same in f32
     at 14 layers; (Z18c) Z6's check for a depth-2 f32 copy, its prefill
     dropping pairs;
+13b. (Z19) serve whisper-tiny whole (4 encoder and 4 decoder layers) in
+    bf16 and f32 through ``ServingEngine`` on Z4's prompts (zero frames, as
+    the engine feeds them), hold each step's logits, replayed with N(0, 1)
+    frames, against a forward over the same frames under Z4's rule, and its
+    f32 copy on the card against the CPU at full depth: 12
+    ``flash_attention`` launches a prefill (4 encoder, 4 self-, 4
+    cross-attention), none a decode step; (Z20a) internvl2-76b at full
+    width and 24 of its 80 layers in bf16, the same way with 256 N(0, 1)
+    patches before the prompts in the hold; (Z20b) 8 layers in f32; (Z20c)
+    Z6's check for a depth-2 f32 copy;
 14. (Z11) the paper's split-point search on phase 4's VGG16 (the same
     seed): Table I/II from ``core.stats``, held equal to the reference's
     (``VGG16_TOTALS_16``); the Grad-CAM CS curve over the 18 feature ops on
@@ -119,7 +131,7 @@ no install: it puts ``src/`` on the path itself).  Phases:
 21. print the kernels' launch counts with their errors, times and bounds as
     one JSON line, then ``{"ok": true, "device": ...}``.
 
-Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18, Z11, Z12's training and its
+Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18-Z20, Z11, Z12's training and its
 deploy, Z13, Z14, each part of Z15, Z16, Z17 and its ``fit``) runs with the
 launch counts set to 0 just before it and read just after; a served run's
 prefill and decode are counted apart as well, and ``flash_attention``'s
@@ -236,10 +248,33 @@ FLASH_SHAPES = [
     ("sq500_sk2000_f32", 4, 500, 2000, 24, 8, 128, True, None, torch.float32),
     ("ragged777", 4, 777, 777, 24, 8, 128, True, None, torch.bfloat16),
     ("ragged777_f32", 4, 777, 777, 24, 8, 128, True, None, torch.float32),
+    # whisper-tiny at head dim 64 (H 6, K 6) on Z4's longest prompt: the
+    # encoder over its 1500 frames (no mask, 1500 not a multiple of the
+    # 128-key tile), the decoder's self-attention, and its cross-attention,
+    # 2000 queries over the 1500 frames' keys (Sq > Sk, no mask); a window at
+    # D 64 for the probe's falling edge; internvl2-76b's prefill, 256 patches
+    # before Z4's 2000 tokens (H 64, K 8, D 128)
+    ("whisper_enc", 4, 1500, 1500, 6, 6, 64, False, None, torch.bfloat16),
+    ("whisper_enc_f32", 4, 1500, 1500, 6, 6, 64, False, None, torch.float32),
+    ("whisper_dec", 4, 2000, 2000, 6, 6, 64, True, None, torch.bfloat16),
+    ("whisper_dec_f32", 4, 2000, 2000, 6, 6, 64, True, None, torch.float32),
+    ("whisper_cross", 4, 2000, 1500, 6, 6, 64, False, None, torch.bfloat16),
+    ("whisper_cross_f32", 4, 2000, 1500, 6, 6, 64, False, None, torch.float32),
+    ("window512_d64", 4, 2000, 2000, 6, 6, 64, True, 512, torch.bfloat16),
+    ("window512_d64_f32", 4, 2000, 2000, 6, 6, 64, True, 512, torch.float32),
+    ("internvl_prefill", 4, 2256, 2256, 64, 8, 128, True, None, torch.bfloat16),
+    ("internvl_prefill_f32", 4, 2256, 2256, 64, 8, 128, True, None, torch.float32),
 ]
 # flash_attention against its plain version, as tests/test_kernels.py holds
 # the TPU kernel to its ref
 FLASH_BAR = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# beside it in bf16, element by element, a bar relative to |o|: the kernel
+# rounds each softmax weight and each output to bf16 (at most 2**-8 of the
+# value each), so |kernel - plain| <= 2**-8 (|o| + (P|V|)), with P|V| the
+# plain attention over |v|; the bar allows twice that, one bf16 step of o.
+# At |o| >= 4 that step (0.031) is past the absolute bar's 2e-2, and at |o|
+# near 0.1 the absolute bar lets 20% through
+FLASH_BF16_STEP = 2.0 ** -7
 # rwkv6_scan at the rwkv6-1.6b prefill and decode (H 32, D 64): (label, B, S,
 # H, D, nonzero initial state, decays and bonus as the served model's).  The
 # other rows take w = exp(-exp(N(0, 1) - 1)), down to about 1e-9, and u =
@@ -274,6 +309,17 @@ JAMBA = "jamba-v0.1-52b"
 # weights, 67.5 GB, and one stacked expert leaf, 20.7 GB, do not fit)
 DEEPSEEK = "deepseek-moe-16b"
 DEEPSEEK_F32_LAYERS = 14
+# Z19: whisper-tiny whole (4 encoder and 4 decoder layers) on Z4's prompts;
+# Z20: internvl2-76b at full width, Z4's prompts after its 256 patches, cut
+# in depth: 24 of 80 layers in bf16 (45.5 GB of weights; the model plus one
+# stacked w_gate leaf, 11.3 GB, at init), 8 in f32 (36.2 GB).  Each served
+# run feeds zero frames or patches, as ServingEngine does; each hold feeds
+# N(0, 1) ones from numpy seed 0 (FRONT_SEED): zero frames would leave the
+# encoder's projection untested
+WHISPER = "whisper-tiny"
+INTERNVL = "internvl2-76b"
+INTERNVL_BF16_LAYERS, INTERNVL_F32_LAYERS = 24, 8
+FRONT_SEED = 0
 SERVED_CUTS = (16, 23, 33)
 HEADLINE = "pool23"           # the shape whose numbers head each kernel's entry
 # each codec kernel's launches in phases 4-5: 3 cuts x (1 + 3 timed) in the
@@ -1581,23 +1627,31 @@ def live_pairs(sq, sk, causal, window) -> int:
 
 
 def flash_err(label, q, k, v, causal, window) -> tuple:
-    """Max |kernel - plain| of ``flash_attention`` and the plain output;
-    raises past the bar."""
+    """Max |kernel - plain| of ``flash_attention``, in bf16 its largest share
+    of the step bar (``FLASH_BF16_STEP``; None in f32), and the plain
+    output; raises past either bar."""
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    if got.dtype != q.dtype or not torch.isfinite(got).all() or err > FLASH_BAR[q.dtype]:
+    diff = (got.float() - want.float()).abs()
+    err, step = float(diff.max()), None
+    if q.dtype == torch.bfloat16:
+        spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window)
+        bar = FLASH_BF16_STEP * (want.float().abs() + spread.float())
+        step = float((diff / bar).max())
+        del spread, bar
+    if (got.dtype != q.dtype or not torch.isfinite(got).all() or err > FLASH_BAR[q.dtype]
+            or (step is not None and step > 1)):
         raise AssertionError(f"flash_attention at {label}: max err {err} "
-                             f"(bar {FLASH_BAR[q.dtype]})")
-    return err, want
+                             f"(bar {FLASH_BAR[q.dtype]}), share of the step bar {step}")
+    return err, step, want
 
 
 def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
     q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
     k, v = (torch.randn((b, sk, kh, d), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
-    err, want = flash_err(label, q, k, v, causal, window)
+    err, step, want = flash_err(label, q, k, v, causal, window)
     # the mask-edge probe: rising scores find the causal (or key-range)
     # edge, falling ones the window's
     probe = {}
@@ -1607,7 +1661,7 @@ def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
             pq, pk, pv = ref.flash_edge_probe(b, sq, sk, h, kh, d, rising=rising, seed=sq,
                                               device="cuda")
             probe["rising" if rising else "falling"] = flash_err(
-                f"{label} edge probe", pq, pk, pv, causal, window)[0]
+                f"{label} edge probe", pq, pk, pv, causal, window)[:2]
             del pq, pk, pv
     # the library yardstick: SDPA with the same mask, heads first, GQA as is
     mask = None
@@ -1629,7 +1683,8 @@ def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
     pairs = live_pairs(sq, sk, causal, window)
     e = {"shape": label, "B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
          "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
-         "route": FA.ROUTES[dtype], "max_abs_err": err, "edge_probe_err": probe,
+         "route": FA.ROUTES[dtype], "max_abs_err": err, "step_bar_share": step,
+         "edge_probe_err_and_step_share": probe,
          "library_max_abs_err": lib_err, "live_pairs": pairs,
          "ms": device_ms(run), "call_ms": call_ms(run),
          "plain_ms": device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
@@ -1784,11 +1839,13 @@ def served_cfg(arch, **changes):
 
 def per_token_launches(cfg) -> tuple:
     """Kernel launches ``{kernel: n}`` of one prefill and of one decode step
-    of ``cfg``: ``flash_attention`` once an attention layer in the prefill
-    (decode attention is plain ops), each scan once a layer of its mixer in
-    the prefill and in every decode step."""
+    of ``cfg``: ``flash_attention`` once an attention layer in the prefill,
+    once more a cross-attention and once an encoder layer (decode attention
+    is plain ops, the cross step too), each scan once a layer of its mixer
+    in the prefill and in every decode step."""
     descs, n_groups = T.block_structure(cfg)
-    attn = n_groups * sum(d.mixer == "attn" for d in descs)
+    attn = n_groups * sum((d.mixer == "attn") + d.cross for d in descs)
+    attn += cfg.n_enc_layers if cfg.family == "encdec" else 0
     rwkv = n_groups * sum(d.mixer == "rwkv" for d in descs)
     mamba = n_groups * sum(d.mixer == "mamba" for d in descs)
     return ({"flash_attention": attn, "rwkv6_scan": rwkv, "mamba_scan": mamba},
@@ -1812,7 +1869,24 @@ def check_flash_route(what, counts, dtype, n) -> dict:
     return want
 
 
-def served_forward(params, cfg, seq, n_prompt) -> tuple:
+def front_inputs(cfg, b, device) -> dict:
+    """The stub frontend's input a hold feeds ``cfg``: whisper's frames or a
+    VLM's patch embeddings, N(0, 1) from numpy seed ``FRONT_SEED``, in the
+    config's dtype; ``{}`` for a model without a frontend."""
+    if cfg.family not in ("encdec", "vlm"):
+        return {}
+    key, n = (("frames", cfg.n_frames) if cfg.family == "encdec"
+              else ("patch_embeds", cfg.n_patches))
+    a = np.random.default_rng(FRONT_SEED).standard_normal((b, n, cfg.d_frontend))
+    return {key: torch.from_numpy(a.astype(np.float32)).to(device, cfg.tdtype)}
+
+
+def n_prefix(cfg) -> int:
+    """Positions before the tokens: a VLM's patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def served_forward(params, cfg, seq, n_prompt, front=None) -> tuple:
     """The final-normed x (B,S,D) that a served run computes over ``seq``
     (the prompt's ``n_prompt`` tokens, then the served ones), and the
     (token, expert) pairs each MoE layer drops, ``{"prefill": [...],
@@ -1822,9 +1896,10 @@ def served_forward(params, cfg, seq, n_prompt) -> tuple:
     forward over ``seq`` would group prompt and served tokens together, at
     another capacity, and drop other prompt tokens.  So the MoE of the
     prompt positions runs at the default ``group_chunk`` and that of each
-    served position at ``group_chunk=1``.  Without MoE it is ``T.forward``."""
+    served position at ``group_chunk=1``.  Without MoE it is ``T.forward``,
+    fed ``front`` (frames or patch embeddings) beside the tokens."""
     if cfg.moe is None:
-        return T.forward(params, cfg, {"tokens": seq})["x"], {}
+        return T.forward(params, cfg, {"tokens": seq, **(front or {})})["x"], {}
     descs, n_groups = T.block_structure(cfg)
     x, positions, _ = T.embed_inputs(params, cfg, {"tokens": seq})
     drops = {"prefill": [], "decode": []}
@@ -1861,16 +1936,20 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
     the logits of each step held against one full forward over prompt +
     served tokens (see ``ZOO_RTOL``), with an MoE model's tokens routed as
     the served run routed them (``served_forward``).  Z18: an MoE model's
-    prefill must drop pairs at capacity, its decode steps none.
-    ``n_layers`` cuts the depth."""
+    prefill must drop pairs at capacity, its decode steps none.  Z19, Z20:
+    the served run feeds zero frames or patches, as ``ServingEngine`` does;
+    the replay and the forward are both fed ``front_inputs``, so the replay
+    greedy-decodes other tokens than the served ones and is fed the served
+    ones.  ``n_layers`` cuts the depth."""
     t_phase = time.perf_counter()
     cfg = served_cfg(arch, dtype=dtype, **({"n_layers": n_layers} if n_layers else {}))
     per_prefill, per_step = per_token_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9     # held by earlier phases
     t0 = time.perf_counter()
     params = T.init_params(0, cfg, device="cuda")
     torch.cuda.synchronize()
-    out = {"arch": arch, "dtype": dtype, "init_s": time.perf_counter() - t0,
+    out = {"arch": arch, "dtype": dtype, "base_gb": base_gb, "init_s": time.perf_counter() - t0,
            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "param_gb": sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9,
            "prompt_lens": list(prompt_lens), "new_tokens": NEW_TOKENS,
@@ -1879,7 +1958,7 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
     torch.cuda.reset_peak_memory_stats()      # peak_gb: serving, the weights included
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
-    slots = max(prompt_lens) + NEW_TOKENS
+    slots = n_prefix(cfg) + max(prompt_lens) + NEW_TOKENS
     engine = ServingEngine(cfg, params, cache_slots=slots, device="cuda")
     reqs = [Request(i, p, max_new=NEW_TOKENS) for i, p in enumerate(prompts)]
     reset_launches()
@@ -1902,11 +1981,13 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
     # the same work again, prefill and decode timed apart, fed the served
     # tokens; each step's logits are kept
     toks = torch.from_numpy(padded(prompts)).cuda()
+    front = front_inputs(cfg, len(prompts), "cuda")
+    batch = {"tokens": toks, **front}
     with torch.inference_mode():
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache, pos = T.prefill(params, cfg, {"tokens": toks}, slots)
+        logits, cache, pos = T.prefill(params, cfg, batch, slots)
         torch.cuda.synchronize()
         out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
         out["prefill_launches"] = launch_counts()
@@ -1929,12 +2010,13 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
                        {k: NEW_TOKENS * n for k, n in per_step.items()})
         del cache
         steps = torch.stack(steps[:NEW_TOKENS], 1)            # (B, NEW_TOKENS, V)
-        if not torch.equal(steps.argmax(-1).int(), served):
+        greedy = steps.argmax(-1).int()
+        if not front and not torch.equal(greedy, served):
             raise AssertionError(f"{arch}: the replay's greedy tokens differ from the served")
         if dtype == "bfloat16":
             out["prefill_profile"] = device_breakdown(
-                lambda: T.prefill(params, cfg, {"tokens": toks}, slots))
-            _, cache, _ = T.prefill(params, cfg, {"tokens": toks}, slots)
+                lambda: T.prefill(params, cfg, batch, slots))
+            _, cache, _ = T.prefill(params, cfg, batch, slots)
             out["decode_step_profile"] = device_breakdown(
                 lambda: T.serve_step(params, cfg, cache, served[:, :1], pos))
             del cache
@@ -1942,11 +2024,12 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
         # the same forward with its input moved by one rounding (in bf16 that
         # response takes in the routes that one rounding flips)
         seq = torch.cat([toks, served[:, :-1]], dim=1)
-        x, drops = served_forward(params, cfg, seq, toks.shape[1])
-        flogits = T.logits_from_x(params, cfg, x[:, toks.shape[1] - 1:]).float()
+        first = n_prefix(cfg) + toks.shape[1] - 1                # the prefill's position
+        x, drops = served_forward(params, cfg, seq, toks.shape[1], front)
+        flogits = T.logits_from_x(params, cfg, x[:, first:]).float()
         flipped = {**params, "embed": ulp_flip(params["embed"])}
-        x, _ = served_forward(flipped, cfg, seq, toks.shape[1])
-        x = x[:, toks.shape[1] - 1:]
+        x, _ = served_forward(flipped, cfg, seq, toks.shape[1], front)
+        x = x[:, first:]
         ulp_err = float((T.logits_from_x(flipped, cfg, x).float() - flogits).abs().max())
         del flipped, x
     if cfg.moe is not None:
@@ -1964,7 +2047,7 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
     row_err = (steps - flogits).abs().amax(-1)                 # (B, NEW_TOKENS)
     rel = float(row_err.max()) / top
     bar = max(ZOO_RTOL[dtype], ULP_FACTOR * ulp_err / top)
-    differ = flogits.argmax(-1) != served.long()
+    differ = flogits.argmax(-1) != greedy.long()
     margins = top2_margin(flogits)
     out["vs_forward"] = {"prefill_rel_err": float(row_err[:, 0].max()) / top,
                          "decode_rel_err": float(row_err[:, 1:].max()) / top,
@@ -1980,7 +2063,7 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
     # a token may differ only where the forward's top two lie closer than
     # twice the step's own logit error
     if bool((differ & (margins > 2 * row_err)).any()):
-        raise AssertionError(f"{arch} {dtype}: served tokens differ from the forward's at "
+        raise AssertionError(f"{arch} {dtype}: greedy tokens differ from the forward's at "
                              f"margins {margins[differ].tolist()}")
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"{arch} {dtype}: one-ulp response {out['vs_forward']['one_ulp_input_response']} "
@@ -2044,9 +2127,9 @@ def split_lens(cfg, params, toks) -> dict:
 
 
 def e2e_check(arch, n_layers=2, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> dict:
-    """Z6 / Z10: a full-width f32 copy of ``arch`` cut to ``n_layers``
-    through the kernels on the card and through the plain versions on the
-    CPU, same weights."""
+    """Z6 / Z10 / Z18c / Z19 / Z20: a full-width f32 copy of ``arch`` cut to
+    ``n_layers`` through the kernels on the card and through the plain
+    versions on the CPU, same weights (and the same ``front_inputs``)."""
     cfg = served_cfg(arch, n_layers=n_layers, dtype="float32")
     per_prefill, per_step = per_token_launches(cfg)
     params_cpu = T.init_params(0, cfg, device="cpu")
@@ -2054,11 +2137,13 @@ def e2e_check(arch, n_layers=2, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> d
     rng = np.random.default_rng(2)
     toks = torch.from_numpy(padded([rng.integers(0, cfg.vocab, n).astype(np.int32)
                                     for n in prompt_lens]))
-    slots = toks.shape[1] + n_new
+    front = front_inputs(cfg, len(prompt_lens), "cpu")
+    slots = n_prefix(cfg) + toks.shape[1] + n_new
 
     def greedy_run(params, dev):
+        batch = {k: t.to(dev) for k, t in {"tokens": toks, **front}.items()}
         with torch.inference_mode():
-            logits, cache, pos = T.prefill(params, cfg, {"tokens": toks.to(dev)}, slots)
+            logits, cache, pos = T.prefill(params, cfg, batch, slots)
             steps = [logits.float().cpu()]
             for step in range(n_new):
                 token = torch.argmax(logits, -1).to(torch.int32)[:, None]
@@ -2215,6 +2300,25 @@ def main() -> int:
     deep_e2e = e2e_check(DEEPSEEK)
     print(f"Z18c end to end {DEEPSEEK}", json.dumps(deep_e2e), flush=True)
     print(f"Z18c took {time.perf_counter() - t0:.1f} s", flush=True)
+    # Z19: whisper-tiny whole, bf16 and f32, and its f32 copy against the
+    # CPU at full depth; Z20: internvl2-76b at full width, cut in depth
+    t0 = time.perf_counter()
+    whisper = {dtype: serve_zoo(WHISPER, LLAMA_PROMPTS, dtype=dtype)
+               for dtype in ("bfloat16", "float32")}
+    for dtype, row in whisper.items():
+        print(f"Z19 served {WHISPER} {dtype}", json.dumps(row), flush=True)
+    whisper_e2e = e2e_check(WHISPER, n_layers=get_config(WHISPER).n_layers)
+    print(f"Z19 end to end {WHISPER}", json.dumps(whisper_e2e), flush=True)
+    print(f"Z19 took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    internvl = {"bfloat16": serve_zoo(INTERNVL, LLAMA_PROMPTS, n_layers=INTERNVL_BF16_LAYERS)}
+    print(f"Z20a served {INTERNVL}", json.dumps(internvl["bfloat16"]), flush=True)
+    internvl["float32"] = serve_zoo(INTERNVL, LLAMA_PROMPTS, dtype="float32",
+                                    n_layers=INTERNVL_F32_LAYERS)
+    print(f"Z20b served {INTERNVL} float32", json.dumps(internvl["float32"]), flush=True)
+    internvl_e2e = e2e_check(INTERNVL)
+    print(f"Z20c end to end {INTERNVL}", json.dumps(internvl_e2e), flush=True)
+    print(f"Z20 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Z11, Z12: the split-point search, bottleneck training and the deploy
     # of the trained AEs, on phase 4's VGG16 (the same seed), last so that
@@ -2285,7 +2389,13 @@ def main() -> int:
             f"Z18a {DEEPSEEK}": deep["launches"],
             f"Z18a {DEEPSEEK} prefill": deep["prefill_launches"],
             f"Z18b {DEEPSEEK} float32 depth {DEEPSEEK_F32_LAYERS}": deep32["launches"],
-            f"Z18c {DEEPSEEK} depth 2": deep_e2e["launches"]}
+            f"Z18c {DEEPSEEK} depth 2": deep_e2e["launches"],
+            **{f"Z19 {WHISPER} {dt}": r["launches"] for dt, r in whisper.items()},
+            **{f"Z19 {WHISPER} {dt} prefill": r["prefill_launches"] for dt, r in whisper.items()},
+            f"Z19 {WHISPER} end to end": whisper_e2e["launches"],
+            **{f"Z20 {INTERNVL} {dt} depth {r['n_layers']}": r["launches"]
+               for dt, r in internvl.items()},
+            f"Z20c {INTERNVL} depth 2": internvl_e2e["launches"]}
 
     def entry(name, rows, replaces, headline):
         head = next(e for e in rows if e["shape"] == headline)

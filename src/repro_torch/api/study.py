@@ -47,10 +47,11 @@ transformer ``ModelConfig`` (viewed through ``transformer_as_layered``),
 or a config name: ``"vgg16"`` builds the small trainable VGG variant, any
 ``repro_torch.configs`` arch name (``"llama3.2-3b"``, ``"rwkv6-1.6b"``,
 ...) resolves through the registry and is reduced to its small variant
-unless ``reduce=False``.  A family the port does not serve yet
-(encoder-decoder, VLM), or a name it does not serve yet
-(qwen3-moe-235b-a22b), raises ``NotImplementedError`` naming its ROADMAP
-item.
+unless ``reduce=False``.  A name the port does not serve yet
+(qwen3-moe-235b-a22b) raises ``NotImplementedError`` naming its ROADMAP
+item.  As the reference's, a whisper view skips the encoder and every
+cross-attention (its blocks get no encoder output), and a VLM view's
+embed layer puts the projected patches before the tokens.
 
 Everything the study makes lives on ``device`` (default ``"cuda"``; on a
 host without CUDA it raises unless the caller asks for ``"cpu"``).  On the
@@ -91,15 +92,6 @@ def _platform(p) -> PlatformProfile:
             raise KeyError(f"unknown platform {p!r}; known: {sorted(PLATFORMS)}")
         return PLATFORMS[p]
     return p
-
-
-def _check_served(cfg) -> None:
-    """Raise for a config whose family the port does not serve."""
-    from repro_torch.configs import ROADMAP_ITEM
-    if cfg.family in ROADMAP_ITEM:
-        raise NotImplementedError(
-            f"{cfg.name} is of the {cfg.family} family, which the port does not "
-            f"serve yet (ROADMAP {ROADMAP_ITEM[cfg.family]})")
 
 
 def fit_loss(model, params, x, y) -> torch.Tensor:
@@ -201,7 +193,6 @@ class Study:
             from repro_torch.models import transformer as T
             from repro_torch.models.common import reduced
             from repro_torch.models.layered import transformer_as_layered
-            _check_served(model)
             if reduce or reduce is None:
                 model = reduced(model, dtype="float32")
             self.cfg = model
@@ -225,10 +216,19 @@ class Study:
         self._xs_np = self._ys_np = None             # host copies of data=
         if self.cfg is not None:                     # transformer batch dict
             cfg, b = self.cfg, batch or 2
-            x = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (b, seq_len)),
+            st = seq_len - (cfg.n_patches if cfg.family == "vlm" else 0)
+            x = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (b, st)),
                                            dtype=torch.int32, device=dev)}
+            if cfg.family == "vlm":
+                x["patch_embeds"] = torch.as_tensor(
+                    rng.normal(size=(b, cfg.n_patches, cfg.d_frontend)),
+                    dtype=torch.float32, device=dev)
+            if cfg.family == "encdec":
+                x["frames"] = torch.as_tensor(
+                    rng.normal(size=(b, cfg.n_frames, cfg.d_frontend)),
+                    dtype=torch.float32, device=dev)
             self._x, self._labels = x, torch.as_tensor(
-                rng.integers(0, cfg.vocab, (b, seq_len)), dtype=torch.int32, device=dev)
+                rng.integers(0, cfg.vocab, (b, st)), dtype=torch.int32, device=dev)
             self._sample = x
             self.input_bytes = sum(t.numel() * t.element_size()
                                    for t in tree_leaves(x)) // b

@@ -1,12 +1,12 @@
 """Config registry (twin of ``repro/configs/__init__.py``):
 ``get_config("<arch-id>")`` knows the same ten names.
 
-The port serves the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families.
-A name in ``UNPORTED`` raises ``NotImplementedError`` naming the ROADMAP
-item that serves it: encoder-decoder and VLM wait for A17, and
-qwen3-moe-235b-a22b for a depth cut and its attention shape on the card
-(A13d).  jamba-v0.1-52b's config carries its MoE and builds with it; the
-card serves it with the changes in ``SERVED``
+The port serves every family of the zoo: ``dense``, ``moe``, ``ssm``,
+``hybrid``, ``encdec`` (whisper-tiny) and ``vlm`` (internvl2-76b).  A name
+in ``UNPORTED`` raises ``NotImplementedError`` naming the ROADMAP item that
+serves it: qwen3-moe-235b-a22b waits for a depth cut and its attention
+shape on the card (A13d).  jamba-v0.1-52b's config carries its MoE and
+builds with it; the card serves it with the changes in ``SERVED``
 (``dataclasses.replace(cfg, moe=None)``, every FFN the dense SwiGLU).
 """
 from __future__ import annotations
@@ -25,14 +25,8 @@ ARCHS = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "llama3-8b": "llama3_8b",
 }
-# the ROADMAP item that ports each family the port does not serve yet
-ROADMAP_ITEM = {"encdec": "A17", "vlm": "A17"}
 # each name the port does not serve yet: (its family, the ROADMAP item)
-UNPORTED = {
-    "internvl2-76b": ("vlm", ROADMAP_ITEM["vlm"]),
-    "whisper-tiny": ("encdec", ROADMAP_ITEM["encdec"]),
-    "qwen3-moe-235b-a22b": ("moe", "A13d"),
-}
+UNPORTED = {"qwen3-moe-235b-a22b": ("moe", "A13d")}
 # what the port changes in a config to serve it on one card: jamba with its
 # MoE (51.5 B parameters, 103 GB in bf16) does not fit one, so every FFN is
 # the dense SwiGLU until its MoE layers run at a depth cut (ROADMAP A13c)

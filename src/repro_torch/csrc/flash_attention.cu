@@ -3,11 +3,15 @@
 //
 // Replaces the TPU kernel flash_attention
 // (repro/kernels/flash_attention.py:86, pallas_call at :106).  Shapes, in the
-// JAX package's layout: q (B, Sq, H, D), k and v (B, Sk, K, D) with H % K == 0
-// and Sq <= Sk, o (B, Sq, H, D) in q's dtype (float32 or bfloat16); D is
-// 128, the head dim of every dense configuration.  Queries sit at the LAST Sq key positions
-// (flash_attention.py:44): query row r has position r + Sk - Sq.  Any Sq and
-// Sk: the ragged edge is masked, where the TPU kernel asserts whole tiles.
+// JAX package's layout: q (B, Sq, H, D), k and v (B, Sk, K, D) with H % K == 0,
+// o (B, Sq, H, D) in q's dtype (float32 or bfloat16); D is 64 or 128, the
+// head dims the TPU kernel names (:6).  Queries sit at the LAST Sq key
+// positions (flash_attention.py:44): query row r has position r + Sk - Sq.
+// Any Sq and Sk: the ragged edge is masked, where the TPU kernel asserts
+// whole tiles.  Sq > Sk only without causal or window masks (a
+// cross-attention): there the offset masks nothing, while under a causal
+// mask rows would be left with no live key, which the TPU kernel writes as 0
+// (:73, :82) and a plain softmax as the mean of v.
 // Key tiles that no query of a block can see are never loaded (the loop
 // bounds follow the causal and window limits, :54-60); inside a visited
 // tile masked entries get -1e30 and, after the exponential, exactly 0 (:74),
@@ -19,19 +23,21 @@
 // operations at the served shapes (bf16: 0.0994 ms at the llama3.2-3b
 // prefill, B 4, S 2000, H 24, K 8).  Each dtype has one kernel:
 //
-// bf16 (flash_fwd_wgmma): the two products on the tensor cores.  One block of
+// bf16 (flash_fwd_wgmma<D>): the two products on the tensor cores.  One block of
 // two warpgroups per (batch * head, 128-query tile), each warpgroup 64 query
 // rows.  TMA loads q once and k, v in 128-key tiles into a two-stage ring in
-// shared memory (128-byte swizzle, one 64-column slab per box; rows past Sq
-// or Sk arrive as zeros), each stage completed on an mbarrier; thread 0 asks
+// shared memory (128-byte swizzle, one 64-column slab per box, D / 64 slabs a
+// row; rows past Sq or Sk arrive as zeros and are masked as keys), each stage
+// completed on an mbarrier; thread 0 asks
 // for tile i+1 before the warpgroups start on tile i, after a barrier that
 // says both are done with the stage it refills.  S = Q K^T is wgmma
-// m64n128k16 with both operands in shared memory, f32 accumulators; the
+// m64n128k16 (D / 16 k-steps) with both operands in shared memory, f32 accumulators; the
 // softmax runs on the accumulator fragment in registers, in base 2 (scores
 // times scale * log2 e, exp2f), its row max and sum reduced over the 4
 // threads that share a row.  P is rounded to bf16 in registers, where the
 // fragment of 16 score columns is wgmma's A operand, and O += P V is one
-// m64n64k16 chain per 64-column slab of V (B from shared memory, MN-major).
+// m64n64k16 chain per 64-column slab of V (B from shared memory, MN-major):
+// one chain at D 64, two at D 128.
 // Rounding P to bf16 is what the JAX model's own chunked attention does
 // (repro/models/layers.py:139-144); the TPU kernel keeps P in f32.
 //
@@ -226,7 +232,6 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
 // ----------------------------------------------------------------- bf16 ----
 namespace wg {
 
-constexpr int D = 128;
 constexpr int BQ = 128;                  // query rows a block: 2 warpgroups of 64
 constexpr int BK = 128;                  // keys a tile
 constexpr int NT = 256;
@@ -234,12 +239,19 @@ constexpr int SLAB = 64;                 // columns of one 128-byte swizzle slab
 constexpr int ROW_BYTES = SLAB * 2;      // 128
 constexpr int Q_SLAB = BQ * ROW_BYTES;   // 16 KB
 constexpr int KV_SLAB = BK * ROW_BYTES;  // 16 KB
-constexpr int Q_BYTES = 2 * Q_SLAB;      // the q tile: 2 slabs
-constexpr int KV_BYTES = 2 * KV_SLAB;    // one k or v tile: 2 slabs
-constexpr int STAGE_BYTES = 2 * KV_BYTES;
-// the swizzled tiles start on 1024-byte boundaries (the swizzle's period)
-constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGE_BYTES;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// the shared-memory plan at head dim D: a row is D / 64 slabs
+template <int D>
+struct Plan {
+  static_assert(D % SLAB == 0, "head dim: whole 64-column slabs");
+  static constexpr int NS = D / SLAB;
+  static constexpr int Q_BYTES = NS * Q_SLAB;    // the q tile
+  static constexpr int KV_BYTES = NS * KV_SLAB;  // one k or v tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // the swizzled tiles start on 1024-byte boundaries (the swizzle's period)
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGE_BYTES;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -357,11 +369,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 4*j + 2*i + c holds row 16*warp + lane/4 + 8*i, column 8*j + 2*(lane%4) + c.
 // The 16 columns 16*kk.. of that fragment, as bf16 pairs in the order of
 // entries 8*kk .. 8*kk+7, are the A fragment of k-step kk.
+template <int D>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                 int n_heads, int n_kv_heads, int sq, int sk, int causal, int window,
                 float scale_log2) {
+  using P = Plan<D>;
+  constexpr int NS = P::NS, Q_BYTES = P::Q_BYTES, KV_BYTES = P::KV_BYTES;
+  constexpr int STAGE_BYTES = P::STAGE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];  // q, stage 0, stage 1
 
@@ -394,7 +410,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const uint32_t dst = stage_k(st), bar = bar_kv(st);
     mbar_expect_tx(bar, STAGE_BYTES);
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < NS; ++c) {
       tma_load(dst + c * KV_SLAB, map_k, bar, c * SLAB, kvh, k0, b);
       tma_load(dst + KV_BYTES + c * KV_SLAB, map_v, bar, c * SLAB, kvh, k0, b);
     }
@@ -409,17 +425,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar_q, Q_BYTES);
-    tma_load(s_q, &tq, bar_q, 0, h, q0, b);
-    tma_load(s_q + Q_SLAB, &tq, bar_q, SLAB, h, q0, b);
+#pragma unroll
+    for (int c = 0; c < NS; ++c) tma_load(s_q + c * Q_SLAB, &tq, bar_q, c * SLAB, h, q0, b);
     load_kv(0, k_begin);
   }
 
-  float s[64], acc[2][32];
+  float s[64], acc[NS][32];
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};  // l: this thread's columns
 #pragma unroll
   for (int i = 0; i < 64; ++i) s[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
+  for (int c = 0; c < NS; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
   const uint32_t q_rows = s_q + 64 * group * ROW_BYTES;  // this warpgroup's 64 rows
   mbar_wait(bar_q, 0);
 
@@ -431,7 +449,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     mbar_wait(bar_kv(st), (it >> 1) & 1);
     const uint32_t k_tile = stage_k(st), v_tile = k_tile + KV_BYTES;
 
-    // S = Q K^T: 8 k-steps of 16 over D, 4 in each 64-column slab
+    // S = Q K^T: D / 16 k-steps of 16 over D, 4 in each 64-column slab
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -468,7 +486,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       m_run[i] = mx[i];
       l_run[i] *= alpha[i];
     }
-    uint32_t p[D / 16][4];
+    uint32_t p[BK / 16][4];
 #pragma unroll
     for (int idx = 0; idx < 64; idx += 2) {
       const int i = (idx / 2) % 2;
@@ -481,7 +499,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       p[idx / 8][(idx % 8) / 2] = pack_bf16(p0, p1);
     }
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
+    for (int c = 0; c < NS; ++c)
 #pragma unroll
       for (int idx = 0; idx < 32; ++idx) acc[c][idx] *= alpha[(idx / 2) % 2];
 
@@ -489,14 +507,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     // reads keys 16*kk.. (two 8-row groups of 1024 bytes)
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
+    for (int c = 0; c < NS; ++c)
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
         wgmma_rs_n64(acc[c], p[kk], desc(v_tile + c * KV_SLAB + kk * 16 * ROW_BYTES, KV_SLAB));
     wgmma_commit();
     wgmma_wait();
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
+#pragma unroll
+    for (int c = 0; c < NS; ++c) fence_regs(acc[c]);
   }
 
 #pragma unroll
@@ -511,7 +529,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const float denom = fmaxf(l_run[i], 1e-30f);
     __nv_bfloat16* orow = o + ((size_t)(b * sq + r) * n_heads + h) * D;
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
+    for (int c = 0; c < NS; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int idx = 4 * j + 2 * i;
@@ -548,6 +566,7 @@ EncodeTiled encode_tiled() {
 
 // (B, S, heads, D) bf16 as a 4-D map (D, heads, S, B); a box is 64 columns
 // x 1 head x box_rows rows x 1 batch, 128-byte swizzled, zeros past S
+template <int D>
 bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int batch, int rows,
                 int heads, int box_rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows,
@@ -562,20 +581,23 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int batch
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int sk, int h,
            int kh, int causal, int window, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(encode, &tq, q, b, sq, h, BQ) || !tensor_map(encode, &tk, k, b, sk, kh, BK) ||
-      !tensor_map(encode, &tv, v, b, sk, kh, BK))
+  if (!tensor_map<D>(encode, &tq, q, b, sq, h, BQ) ||
+      !tensor_map<D>(encode, &tk, k, b, sk, kh, BK) ||
+      !tensor_map<D>(encode, &tv, v, b, sk, kh, BK))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  constexpr int smem = Plan<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, (sq + BQ - 1) / BQ);
-  flash_fwd_wgmma<<<grid, NT, SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), h, kh,
-                                              sq, sk, causal, window, scale * LOG2E);
+  flash_fwd_wgmma<D><<<grid, NT, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), h,
+                                                 kh, sq, sk, causal, window, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -583,17 +605,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  window <= 0 means no window.
+// dtype: 0 float32, 1 bfloat16.  window <= 0 means no window.  Sq > Sk only
+// with neither mask.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                int dtype, int b, int sq, int sk, int h, int kh, int d,
                                int causal, int window, float scale, void* stream) {
-  if (b <= 0 || sq <= 0 || sk < sq || h <= 0 || kh <= 0 || h % kh != 0 || d != 128 ||
-      (sq + BQ - 1) / BQ > 65535)
+  if (b <= 0 || sq <= 0 || sk <= 0 || (sk < sq && (causal || window > 0)) || h <= 0 ||
+      kh <= 0 || h % kh != 0 || (d != 64 && d != 128) || (sq + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool d64 = d == 64;
   switch (dtype) {
-    case 0: return launch<float, 128>(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st);
-    case 1: return wg::launch(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st);
+    case 0:
+      return d64 ? launch<float, 64>(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st)
+                 : launch<float, 128>(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st);
+    case 1:
+      return d64 ? wg::launch<64>(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st)
+                 : wg::launch<128>(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -16,7 +16,11 @@ route per dtype and no switch between them:
 Bound on an H100: the bytes of q, k, v and the output once at 3.35 TB/s
 against ``4*B*H*D*(live query-key pairs)`` operations at 989 TFLOP/s (bf16
 inputs) or 67 TFLOP/s (f32 inputs).  Key tiles no query of a block can see
-are skipped.  Any Sq <= Sk: the ragged edge is masked.
+are skipped.  Head dims 64 and 128, the two the TPU kernel names.  Queries
+sit at the last Sq of Sk key positions, and the ragged edge is masked.
+Sq > Sk (a cross-attention over fewer keys than queries) only without
+causal or window masks: under either, a row could see no key, which the
+TPU kernel writes as 0 and a plain softmax as the mean of v.
 """
 from __future__ import annotations
 
@@ -27,13 +31,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import check_lengths, flash_attention_ref
 
 # launches of the CUDA kernel (a CPU call launches nothing)
 launches = {"wgmma_bf16": 0, "simt_f32": 0}
 
-# what the dense configurations use: head dim 128, in float32 or bfloat16
-HEAD_DIMS = (128,)
+# the head dims the TPU kernel names: 64 (whisper-tiny) and 128 (the dense
+# and VLM configurations), in float32 or bfloat16
+HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "simt_f32", torch.bfloat16: "wgmma_bf16"}
 
@@ -44,7 +49,7 @@ _SIGNATURES = {
 }
 
 
-def _check_inputs(q, k, v, window) -> None:
+def _check_inputs(q, k, v, causal, window) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"want q (B, Sq, H, D), k and v (B, Sk, K, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -55,8 +60,7 @@ def _check_inputs(q, k, v, window) -> None:
     sk, kh = k.shape[1], k.shape[2]
     if kh == 0 or h % kh:
         raise ValueError(f"{h} query heads do not split over {kh} kv heads")
-    if sq > sk:
-        raise ValueError(f"queries sit at the last Sq of Sk key positions: Sq {sq} > Sk {sk}")
+    check_lengths(sq, sk, causal, window)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -70,15 +74,16 @@ def _check_inputs(q, k, v, window) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0 and Sq <= Sk.
-    Returns (B, Sq, H, D) in q's dtype; scores, softmax and sums are f32.
+    """q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0, and Sq <= Sk
+    unless neither mask is on.  Returns (B, Sq, H, D) in q's dtype; scores,
+    softmax and sums are f32.
 
     A CPU tensor goes to :func:`flash_attention_ref`; a CUDA tensor launches
     its dtype's kernel on the current stream (``ROUTES``), or raises (also
     where grad mode is on and an input requires grad: the kernel has no
     backward).
     """
-    _check_inputs(q, k, v, window)
+    _check_inputs(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -18,15 +18,28 @@ import torch
 NEG_INF = -1e30
 
 
+def check_lengths(sq: int, sk: int, causal: bool, window: Optional[int]) -> None:
+    """Queries sit at the last Sq of Sk key positions, so Sq > Sk is taken
+    only where neither mask reads a position (a cross-attention): under a
+    causal or window mask the first Sq - Sk rows would see no key, which the
+    TPU kernel writes as 0 (``repro/kernels/flash_attention.py:73, :82``)
+    and a plain softmax as the mean of v."""
+    if sq > sk and (causal or window is not None):
+        raise ValueError(f"queries sit at the last Sq of Sk key positions: Sq {sq} > Sk {sk} "
+                         f"takes neither a causal nor a window mask")
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None) -> torch.Tensor:
     """Plain softmax attention with GQA.
 
     q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0.  Queries sit at
-    the last Sq key positions.  f32 math, output in q's dtype.
+    the last Sq key positions (:func:`check_lengths`).  f32 math, output in
+    q's dtype.
     """
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
+    check_lengths(sq, sk, causal, window)
     g = h // kh
     k = torch.repeat_interleave(k, g, dim=2)
     v = torch.repeat_interleave(v, g, dim=2)

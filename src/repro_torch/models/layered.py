@@ -105,9 +105,12 @@ def transformer_as_layered(cfg, params) -> LayeredModel:
 
     Cuts are legal only at block boundaries: never inside a recurrence or
     an attention op.  Layer 0 is the embedding (its input is the batch
-    dict); the final norm and the head are the last layer, which is not a
-    legal cut (a cut there is RC-equivalent).  The layers close over
-    ``params``; their own parameter entries are empty.
+    dict; a VLM's patches go before the tokens); the final norm and the
+    head are the last layer, which is not a legal cut (a cut there is
+    RC-equivalent).  The layers close over ``params``; their own parameter
+    entries are empty.  As in the reference (``layered.py:119-122``), the
+    blocks get no encoder output: a whisper view skips the encoder and
+    every cross-attention.
     """
     from repro_torch.models import transformer as T
 

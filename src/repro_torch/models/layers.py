@@ -1,12 +1,14 @@
-"""Shared transformer primitives: RMSNorm, RoPE, GQA attention, SwiGLU MLP
-(twin of ``repro/models/layers.py``).
+"""Shared transformer primitives: RMSNorm, LayerNorm, RoPE, GQA attention,
+SwiGLU and GELU MLPs (twin of ``repro/models/layers.py``).
 
 Parameters are plain dicts of tensors in the reference's layouts: dense
-weights are (in, out), q/k/v are (B, S, H, D).  Self-attention over a
-sequence goes through ``ops.attention_op``, the ``flash_attention`` kernel
-on the card; one-token decode attention stays plain PyTorch, as the
-reference computes it outside any Pallas kernel.  ``layernorm`` and
-``gelu_mlp`` (encoder-decoder) wait for ROADMAP A17.
+weights are (in, out), q/k/v are (B, S, H, D).  Attention over a sequence
+(self- and cross-attention) goes through ``ops.attention_op``, the
+``flash_attention`` kernel on the card; one-token decode attention stays
+plain PyTorch, as the reference computes it outside any Pallas kernel.
+Where the reference mixes dtypes (f32 frames or patches fed to a bf16
+model), JAX promotes to f32; ``dense`` and ``attention`` do the same, since
+``torch`` products refuse mixed operands.
 """
 from __future__ import annotations
 
@@ -27,6 +29,16 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * w.float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    xc = x - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * w.float() + b.float()).to(dt)
 
 
 # ----------------------------------------------------------------- rope ----
@@ -69,9 +81,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     reference's chunked path (Sq*Sk > 512**2) does; in f32, and in the
     plain version on the CPU, they stay f32.  As the reference's plain
     path, a single query is not causally masked: it sits at the last key
-    position, so the mask would change nothing.
+    position, so the mask would change nothing.  Mixed dtypes (bf16 queries
+    over keys from f32 frames) run in the promoted dtype, the output in q's,
+    as the reference computes them.
     """
-    return ops.attention_op(q, k, v, causal=causal and q.shape[1] > 1, window=window)
+    dt = q.dtype
+    if not q.dtype == k.dtype == v.dtype:
+        ct = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+        q, k, v = q.to(ct), k.to(ct), v.to(ct)
+    out = ops.attention_op(q, k, v, causal=causal and q.shape[1] > 1, window=window)
+    return out.to(dt)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -100,6 +119,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 # ---------------------------------------------------------------- linear ----
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if x.dtype != w.dtype:           # JAX promotes a mixed product
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     y = x @ w
     if b is not None:
         y = y + b
@@ -111,6 +133,13 @@ def swiglu(x: torch.Tensor, p: dict) -> torch.Tensor:
     return dense(F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"]), p["w_down"])
 
 
+def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """GELU MLP (whisper-style): p = {w_in, b_in, w_out, b_out}.  The tanh
+    form: ``jax.nn.gelu`` defaults to ``approximate=True``."""
+    h = F.gelu(dense(x, p["w_in"], p["b_in"]), approximate="tanh")
+    return dense(h, p["w_out"], p["b_out"])
+
+
 # ------------------------------------------------------------------ init ----
 def init_dense(gen, fan_in: int, fan_out: int, dtype, device) -> torch.Tensor:
     std = 1.0 / math.sqrt(fan_in)
@@ -118,9 +147,12 @@ def init_dense(gen, fan_in: int, fan_out: int, dtype, device) -> torch.Tensor:
     return (w * std).to(dtype)
 
 
-def init_attn(gen, cfg, device) -> dict:
-    """GQA attention params (cross-attention waits for ROADMAP A17)."""
+def init_attn(gen, cfg, device, with_bias=None, cross=False) -> dict:
+    """GQA attention params.  cross=True: whisper's cross-attention, MHA
+    (as many kv heads as query heads) in the same layout."""
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if cross:
+        kh = h
     dt = cfg.tdtype
     p = {
         "wq": init_dense(gen, d, h * hd, dt, device),
@@ -128,7 +160,8 @@ def init_attn(gen, cfg, device) -> dict:
         "wv": init_dense(gen, d, kh * hd, dt, device),
         "wo": init_dense(gen, h * hd, d, dt, device),
     }
-    if cfg.qkv_bias:
+    bias = cfg.qkv_bias if with_bias is None else with_bias
+    if bias:
         p["bq"] = torch.zeros((h * hd,), dtype=dt, device=device)
         p["bk"] = torch.zeros((kh * hd,), dtype=dt, device=device)
         p["bv"] = torch.zeros((kh * hd,), dtype=dt, device=device)
@@ -139,3 +172,10 @@ def init_swiglu(gen, d_model: int, d_ff: int, dtype, device) -> dict:
     return {"w_gate": init_dense(gen, d_model, d_ff, dtype, device),
             "w_up": init_dense(gen, d_model, d_ff, dtype, device),
             "w_down": init_dense(gen, d_ff, d_model, dtype, device)}
+
+
+def init_gelu_mlp(gen, d_model: int, d_ff: int, dtype, device) -> dict:
+    return {"w_in": init_dense(gen, d_model, d_ff, dtype, device),
+            "b_in": torch.zeros((d_ff,), dtype=dtype, device=device),
+            "w_out": init_dense(gen, d_ff, d_model, dtype, device),
+            "b_out": torch.zeros((d_model,), dtype=dtype, device=device)}

@@ -1,16 +1,20 @@
-"""The zoo's model definition for the ``dense``, ``ssm`` and ``hybrid``
-families (twin of ``repro/models/transformer.py``).
+"""The zoo's model definition, every family of the zoo (twin of
+``repro/models/transformer.py``).
 
 * ``forward(params, cfg, batch)``      — full-sequence (prefill)
 * ``serve_step(params, cfg, cache,…)`` — one-token decode against a cache
 
 Parameters keep the reference's group-stacked tree: every leaf under
-``params["layers"]`` has a leading group axis.  Where the reference scans
-over groups with ``jax.lax.scan``, the port runs a Python loop over them.
-An MoE layer runs ``moe.moe_ffn`` as the reference does: its aux loss is
-summed over the layers of a forward and dropped at decode, where each
-token is a dispatch group of its own.  The cross-attention, encoder and VLM
-branches raise ``NotImplementedError`` until ROADMAP A17 ports them.
+``params["layers"]`` (and ``params["enc"]["layers"]``) has a leading group
+axis.  Where the reference scans over groups with ``jax.lax.scan``, the port
+runs a Python loop over them.  An MoE layer runs ``moe.moe_ffn`` as the
+reference does: its aux loss is summed over the layers of a forward and
+dropped at decode, where each token is a dispatch group of its own.  The
+encoder-decoder family (whisper) runs an encoder over the stub frontend's
+frames, with rope and no mask, and a cross-attention after each decoder
+layer's self-attention, whose keys and values enter the decode cache once,
+at prefill (``ck``, ``cv``).  The VLM family puts its projected patch
+embeddings before the tokens.
 """
 from __future__ import annotations
 
@@ -24,12 +28,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (apply_rope, attention, decode_attention, dense,
-                                       init_attn, init_dense, init_swiglu, rmsnorm,
-                                       rope_tables, swiglu)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A17)")
+                                       gelu_mlp, init_attn, init_dense, init_gelu_mlp,
+                                       init_swiglu, layernorm, rmsnorm, rope_tables, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +63,7 @@ def _norm_params(d, dtype, device):
 
 def _apply_norm(p, x, cfg):
     if cfg.family == "encdec":
-        raise _unported("layernorm (encoder-decoder)")
+        return layernorm(x, p["w"], p["b"], cfg.norm_eps)
     return rmsnorm(x, p["w"], cfg.norm_eps)
 
 
@@ -86,17 +86,17 @@ def init_layer(gen, desc: LayerDesc, cfg: ModelConfig, device) -> dict:
         p["tm"] = rwkv_mod.init_time_mix(gen, cfg, device)
         p["cm"] = rwkv_mod.init_channel_mix(gen, cfg, device)
     if desc.cross:
-        raise _unported("cross-attention")
+        p["norm_cross"] = _norm_params(d, dt, device)
+        p["cross"] = init_attn(gen, cfg, device, with_bias=True, cross=True)
     if desc.ffn == "dense":
-        p["ffn"] = init_swiglu(gen, d, cfg.d_ff, dt, device)
+        p["ffn"] = (init_gelu_mlp(gen, d, cfg.d_ff, dt, device) if cfg.family == "encdec"
+                    else init_swiglu(gen, d, cfg.d_ff, dt, device))
     elif desc.ffn == "moe":
         p["ffn"] = moe_mod.init_moe(gen, d, cfg.moe, dt, device)
     return p
 
 
 def _init_tree(gen, cfg: ModelConfig, device) -> dict:
-    if cfg.family in ("encdec", "vlm"):
-        raise _unported(f"the {cfg.family} family")
     descs, n_groups = block_structure(cfg)
     d, dt = cfg.d_model, cfg.tdtype
 
@@ -118,6 +118,23 @@ def _init_tree(gen, cfg: ModelConfig, device) -> dict:
     }
     if not cfg.tie_embeddings:
         params["head"] = init_dense(gen, d, cfg.vocab, dt, device)
+    if cfg.family == "encdec":
+        enc_desc = LayerDesc("attn", "dense")
+        pos = torch.randn((cfg.n_frames, d), generator=gen, dtype=torch.float32, device=device)
+        params["enc"] = {
+            "proj": init_dense(gen, cfg.d_frontend, d, dt, device),
+            "pos": (pos * 0.01).to(dt),
+            "layers": stack([init_layer(gen, enc_desc, cfg, device)
+                             for _ in range(cfg.n_enc_layers)]),
+            "final_norm": _norm_params(d, dt, device),
+        }
+    if cfg.family == "vlm":
+        params["projector"] = {
+            "w1": init_dense(gen, cfg.d_frontend, d, dt, device),
+            "b1": torch.zeros((d,), dtype=dt, device=device),
+            "w2": init_dense(gen, d, d, dt, device),
+            "b2": torch.zeros((d,), dtype=dt, device=device),
+        }
     return params
 
 
@@ -136,27 +153,32 @@ def param_spec(cfg: ModelConfig) -> dict:
 
 
 # ----------------------------------------------------------- full-seq fwd ----
-def _qkv(p, x, cfg):
+def _qkv(p, x, cfg, cross_src=None):
     b, s, _ = x.shape
     hd = cfg.hd
+    src = x if cross_src is None else cross_src
+    kh = cfg.n_heads if cross_src is not None else cfg.n_kv_heads
     q = dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads, hd)
-    k = dense(x, p["wk"], p.get("bk")).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(x, p["wv"], p.get("bv")).reshape(b, s, cfg.n_kv_heads, hd)
+    k = dense(src, p["wk"], p.get("bk")).reshape(b, src.shape[1], kh, hd)
+    v = dense(src, p["wv"], p.get("bv")).reshape(b, src.shape[1], kh, hd)
     return q, k, v
 
 
-def _attn_seq(p, x, cfg, positions, *, causal, window):
-    q, k, v = _qkv(p, x, cfg)
-    cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
-    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+def _attn_seq(p, x, cfg, positions, *, causal, window, cross_src=None):
+    q, k, v = _qkv(p, x, cfg, cross_src)
+    if cross_src is None:  # rope only for self-attention
+        cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     out = attention(q, k, v, causal=causal, window=window)
     b, s = x.shape[0], x.shape[1]
     return dense(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"]), (k, v)
 
 
 def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
-                    window=None, collect_cache=False):
-    """One sublayer over a full sequence.  Returns (x, aux, cache_entry)."""
+                    window=None, enc_out=None, collect_cache=False):
+    """One sublayer over a full sequence.  Returns (x, aux, cache_entry).
+    A cross layer attends to ``enc_out`` where it is given, and skips its
+    cross-attention where it is not, as the reference does."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = {}
     h = _apply_norm(p["norm1"], x, cfg)
@@ -174,11 +196,16 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
         if collect_cache:
             cache["tm_prev"], cache["wkv"] = tm_prev, wkv
     x = x + att
-    if desc.cross:
-        raise _unported("cross-attention")
+    if desc.cross and enc_out is not None:
+        h = _apply_norm(p["norm_cross"], x, cfg)
+        catt, (ck, cv) = _attn_seq(p["cross"], h, cfg, positions, causal=False, window=None,
+                                   cross_src=enc_out)
+        if collect_cache:
+            cache["ck"], cache["cv"] = ck, cv
+        x = x + catt
     h = _apply_norm(p["norm2"], x, cfg)
     if desc.ffn == "dense":
-        f = swiglu(h, p["ffn"])
+        f = gelu_mlp(h, p["ffn"]) if cfg.family == "encdec" else swiglu(h, p["ffn"])
     elif desc.ffn == "moe":
         f, aux = moe_mod.moe_ffn(h, p["ffn"], cfg.moe)
     else:  # rwkv channel mix
@@ -188,31 +215,53 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
     return x + f, aux, cache
 
 
+def _encoder(params, cfg, frames):
+    """Whisper-style encoder on stub frame embeddings (B, F, d_frontend):
+    rope at positions 0..F-1 and no mask in its self-attention."""
+    enc = params["enc"]
+    x = dense(frames, enc["proj"]) + enc["pos"][None]
+    desc = LayerDesc("attn", "dense")
+    positions = torch.arange(frames.shape[1], device=x.device)
+    for i in range(cfg.n_enc_layers):
+        x, _, _ = apply_layer_seq(_group(enc["layers"], i), desc, x, cfg, positions,
+                                  causal=False)
+    return _apply_norm(enc["final_norm"], x, cfg)
+
+
 def embed_inputs(params, cfg, batch):
-    """Token embedding -> (x (B,S,D), positions (S,), enc_out=None)."""
-    if cfg.family in ("vlm", "encdec"):
-        raise _unported(f"the {cfg.family} frontend")
+    """Token (+frontend) embedding -> (x (B,S,D), positions (S,), enc_out=None).
+
+    A VLM puts ``tanh(pe @ w1 + b1) @ w2 + b2`` of its patch embeddings, in
+    the embedding's dtype, before the tokens, and its positions run over
+    both; the encoder-decoder's encoder runs in :func:`forward`."""
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
+    if cfg.family == "vlm":
+        pj = params["projector"]
+        h = torch.tanh(dense(batch["patch_embeds"], pj["w1"], pj["b1"]))
+        x = torch.cat([dense(h, pj["w2"], pj["b2"]).to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions, None
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, collect_cache=False):
-    """Full-sequence forward.  batch: tokens (B,S) on the parameters' device.
+    """Full-sequence forward.  batch: tokens (B,S_text) [+ patch_embeds
+    (B,P,df) | frames (B,F,df)] on the parameters' device.
 
     Returns dict(x=final-normed (B,S,D), aux, cache=group-stacked cache or
     None, positions).
     """
     descs, n_groups = block_structure(cfg)
     x, positions, _ = embed_inputs(params, cfg, batch)
+    enc_out = _encoder(params, cfg, batch["frames"]) if cfg.family == "encdec" else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [dict() for _ in descs]
     for g in range(n_groups):
         group_p = _group(params["layers"], g)
         for j, desc in enumerate(descs):
             x, a, c = apply_layer_seq(group_p[f"l{j}"], desc, x, cfg, positions, causal=True,
-                                      window=cfg.sliding_window, collect_cache=collect_cache)
+                                      window=cfg.sliding_window, enc_out=enc_out,
+                                      collect_cache=collect_cache)
             aux = aux + a
             for key, t in c.items():
                 caches[j].setdefault(key, []).append(t)
@@ -265,7 +314,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
             c["wkv"] = zeros((n_groups, batch, nh, cfg.rwkv_head_dim, cfg.rwkv_head_dim),
                              torch.float32)
         if desc.cross:
-            raise _unported("the cross-attention cache")
+            c["ck"] = zeros((n_groups, batch, cfg.n_frames, cfg.n_heads, hd), dt)
+            c["cv"] = zeros((n_groups, batch, cfg.n_frames, cfg.n_heads, hd), dt)
         return c
 
     return {f"l{j}": per_layer(d) for j, d in enumerate(descs)}
@@ -310,10 +360,18 @@ def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
         cache_l["wkv"].copy_(wkv)
     x = x + att
     if desc.cross:
-        raise _unported("cross-attention")
+        # one query against every frame, plain ops as in the reference
+        h = _apply_norm(p["norm_cross"], x, cfg)
+        b = h.shape[0]
+        q = dense(h, p["cross"]["wq"], p["cross"].get("bq")).reshape(b, 1, cfg.n_heads, cfg.hd)
+        f = cache_l["ck"].shape[1]
+        kv_pos = torch.arange(f, dtype=torch.int32, device=h.device).expand(b, f)
+        q_pos = torch.full((b,), f, dtype=torch.int32, device=h.device)
+        catt = decode_attention(q, cache_l["ck"], cache_l["cv"], kv_pos, q_pos, None)
+        x = x + dense(catt.reshape(b, 1, cfg.n_heads * cfg.hd), p["cross"]["wo"])
     h = _apply_norm(p["norm2"], x, cfg)
     if desc.ffn == "dense":
-        f = swiglu(h, p["ffn"])
+        f = gelu_mlp(h, p["ffn"]) if cfg.family == "encdec" else swiglu(h, p["ffn"])
     elif desc.ffn == "moe":
         f, _ = moe_mod.moe_ffn(h, p["ffn"], cfg.moe)
     else:
@@ -370,5 +428,9 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_seq_len: int):
             cj["tm_prev"].copy_(rj["tm_prev"])
             cj["cm_prev"].copy_(rj["cm_prev"])
             cj["wkv"].copy_(rj["wkv"])
+        if desc.cross:
+            # the prefill's own tensors, as the reference puts them in (in
+            # their dtype, f32 where f32 frames met a bf16 model)
+            cj["ck"], cj["cv"] = rj["ck"], rj["cv"]
     return logits, cache, s_in
 

@@ -105,6 +105,14 @@ class ServingEngine:
         for i, r in enumerate(requests):
             toks[i, max_prompt - len(r.prompt):] = r.prompt
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        # the stub frontends' inputs, zeros in the config's dtype, as the
+        # reference's engine feeds them
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros((b, cfg.n_patches, cfg.d_frontend),
+                                                dtype=cfg.tdtype, device=self.device)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((b, cfg.n_frames, cfg.d_frontend),
+                                          dtype=cfg.tdtype, device=self.device)
         with torch.inference_mode():
             logits, cache, pos = T.prefill(self.params, cfg, batch, self.cache_slots)
             max_new = max(r.max_new for r in requests)

@@ -180,11 +180,32 @@ def test_split_runtime_on_the_card_matches_the_cpu_path(cuda):
 
 # b, sq, sk, h, kh, d, causal, window: ragged lengths, Sq < Sk, GQA, windows,
 # and the head counts of llama3.2-3b (24 over 8) and jamba-v0.1-52b (32 over
-# 8); the kernel takes the dense configurations' head dim, 128
+# 8) at head dim 128; at head dim 64 the reference's D-64 cases
+# (tests/test_kernels.py FLASH_CASES), ragged and windowed ones, and
+# whisper-tiny's shapes (H 6): the encoder over 1500 frames and the
+# cross-attention, Sq > Sk with no mask (also at D 128 and with GQA)
 FLASH_SHAPES = [(2, 77, 77, 4, 2, 128, True, None), (1, 200, 200, 8, 2, 128, True, 64),
                 (1, 50, 130, 4, 4, 128, True, None), (2, 33, 100, 2, 1, 128, False, 40),
                 (1, 1, 1, 4, 2, 128, True, None), (1, 256, 256, 24, 8, 128, True, None),
-                (1, 256, 256, 32, 8, 128, True, None)]
+                (1, 256, 256, 32, 8, 128, True, None),
+                (2, 256, 256, 4, 2, 64, True, None), (2, 256, 256, 8, 2, 64, True, 128),
+                (1, 256, 256, 2, 1, 64, False, None), (1, 256, 256, 4, 1, 64, True, None),
+                (2, 77, 77, 4, 2, 64, True, None), (1, 50, 130, 6, 6, 64, True, 40),
+                (1, 1500, 1500, 6, 6, 64, False, None), (2, 300, 150, 6, 6, 64, False, None),
+                (1, 2000, 1500, 6, 6, 64, False, None), (1, 260, 130, 4, 2, 128, False, None),
+                (2, 9, 1, 4, 2, 64, False, None)]
+# beside the absolute bf16 bar, element by element, one relative to |o|: the
+# kernel rounds each softmax weight and each output to bf16, at most 2**-8
+# of the value each, so |kernel - plain| <= 2**-8 (|o| + P|V|), P|V| the
+# plain attention over |v|; the bar allows twice that, one bf16 step of o
+BF16_STEP = 2.0 ** -7
+
+
+def _step_share(got, want, q, k, v, causal, window):
+    """The largest share of the bf16 step bar that |got - want| takes."""
+    spread = ref.flash_attention_ref(q, k, v.abs(), causal=causal, window=window).float()
+    bar = BF16_STEP * (want.float().abs() + spread)
+    return float(((got.float() - want.float()).abs() / bar).max())
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
@@ -205,26 +226,42 @@ def test_flash_attention_matches_plain(cuda, shape, dtype):
     # as tests/test_kernels.py holds the TPU kernel to its ref
     assert float((got.float() - want.float()).abs().max()) <= (2e-5 if dtype == "float32"
                                                                else 2e-2)
+    if dt == torch.bfloat16:
+        assert _step_share(got, want, q, k, v, causal, window) <= 1
 
 
 # the mask-edge probe (ref.flash_edge_probe) at each mask: causal, window,
-# Sq < Sk, ragged, non-causal; rising scores find the causal or key-range
-# edge, falling ones the window's
-PROBE_SHAPES = [(1, 300, 300, 4, 2, True, None), (1, 300, 300, 4, 2, True, 64),
-                (2, 100, 333, 8, 2, True, 130), (1, 77, 77, 4, 4, True, None),
-                (1, 200, 200, 4, 2, False, None), (1, 200, 200, 4, 2, False, 50)]
+# Sq < Sk, ragged, non-causal, at head dims 128 and 64 (and Sq > Sk with no
+# mask); rising scores find the causal or key-range edge, falling ones the
+# window's: (b, sq, sk, h, kh, d, causal, window)
+PROBE_SHAPES = [(1, 300, 300, 4, 2, 128, True, None), (1, 300, 300, 4, 2, 128, True, 64),
+                (2, 100, 333, 8, 2, 128, True, 130), (1, 77, 77, 4, 4, 128, True, None),
+                (1, 200, 200, 4, 2, 128, False, None), (1, 200, 200, 4, 2, 128, False, 50),
+                (1, 300, 300, 6, 6, 64, True, 64), (2, 100, 333, 6, 6, 64, True, 130),
+                (1, 300, 200, 6, 6, 64, False, None)]
 
 
 @pytest.mark.parametrize("shape", PROBE_SHAPES)
 @pytest.mark.parametrize("rising", [True, False])
 def test_flash_attention_bf16_mask_edges(cuda, shape, rising):
-    b, sq, sk, h, kh, causal, window = shape
-    q, k, v = ref.flash_edge_probe(b, sq, sk, h, kh, 128, rising=rising, seed=sq,
+    b, sq, sk, h, kh, d, causal, window = shape
+    q, k, v = ref.flash_edge_probe(b, sq, sk, h, kh, d, rising=rising, seed=sq,
                                    device=cuda)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
+    assert _step_share(got, want, q, k, v, causal, window) <= 1
+
+
+def test_flash_attention_refuses_other_head_dims_and_masked_sq_above_sk(cuda):
+    q, kv = torch.zeros((1, 8, 4, 32), device=cuda), torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, kv, kv)
+    q, kv = torch.zeros((1, 9, 4, 64), device=cuda), torch.zeros((1, 8, 2, 64), device=cuda)
+    for kw in ({"causal": True}, {"causal": False, "window": 4}):
+        with pytest.raises(ValueError, match="Sq 9 > Sk 8"):
+            flash_attention(q, kv, kv, **kw)
 
 
 def test_flash_attention_refuses_a_misaligned_bf16_view(cuda):
@@ -311,11 +348,13 @@ def test_mamba_scan_matches_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b", "jamba-v0.1-52b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "whisper-tiny", "internvl2-76b"])
 def test_zoo_serving_on_the_card_matches_the_cpu_path(cuda, arch):
     import dataclasses
-    # the head dims the kernels take: 128 (dense), 64 (rwkv)
-    cfg = dataclasses.replace(reduced(get_config(arch), head_dim=128, rwkv_head_dim=64),
+    # the head dims the kernels take, each config's own: 128, or 64 (whisper's
+    # attention, rwkv's scan)
+    cfg = dataclasses.replace(reduced(get_config(arch), head_dim=get_config(arch).hd,
+                                      rwkv_head_dim=64),
                               dtype="float32", **SERVED.get(arch, {}))
     params_cpu = T.init_params(0, cfg, device="cpu")
     params = _to(params_cpu, cuda)
@@ -327,7 +366,8 @@ def test_zoo_serving_on_the_card_matches_the_cpu_path(cuda, arch):
     counts = launch_counts()
     kernels = {"llama3.2-3b": ["flash_attention"], "rwkv6-1.6b": ["rwkv6_scan"],
                "jamba-v0.1-52b": ["flash_attention", "mamba_scan"],
-               "deepseek-moe-16b": ["flash_attention"]}[arch]
+               "deepseek-moe-16b": ["flash_attention"], "whisper-tiny": ["flash_attention"],
+               "internvl2-76b": ["flash_attention"]}[arch]
     assert all(sum(counts[k].values()) > 0 for k in kernels)
     want = ServingEngine(cfg, params_cpu, cache_slots=80, device="cpu").run(
         [Request(i, p, max_new=4) for i, p in enumerate(prompts)])

@@ -177,12 +177,32 @@ def test_chain_facade_equals_the_hand_stitched_calls(chain):
         assert v.latency_s == flow_latency_s(flow), v.candidate.label
 
 
-@pytest.mark.parametrize("name, item", [("whisper-tiny", "A17"),
-                                        ("qwen3-moe-235b-a22b", "A13d"),
-                                        ("internvl2-76b", "A17")])
+@pytest.mark.parametrize("name, item", [("qwen3-moe-235b-a22b", "A13d")])
 def test_unserved_families_raise(name, item):
     with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\b"):
         TS.Study(name, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "internvl2-76b"])
+def test_encdec_and_vlm_configs_are_served(name):
+    """An encoder-decoder or VLM config builds its study, against the
+    reference's with the same backbone: the sample drawn in the reference's
+    order (tokens, patches or frames, labels; a VLM's text ``seq_len -
+    n_patches`` long), the payload bytes, and the view's logits (a whisper
+    view skips the encoder and the cross-attentions, as the reference's)."""
+    jp, tp = _weights(name)
+    js = _study("ref", name, params=jp, seq_len=16, batch=2, seed=0)
+    ts = _study("port", name, params=tp, seq_len=16, batch=2, seed=0)
+    assert ts.cfg.family == js.cfg.family and ts.cfg.dtype == "float32"
+    assert set(ts._x) == set(js._x) and ts.input_bytes == js.input_bytes
+    for k in js._x:
+        assert ts._x[k].dtype == (torch.int32 if k == "tokens" else torch.float32)
+        np.testing.assert_array_equal(ts._x[k].numpy(), np.asarray(js._x[k]))
+    np.testing.assert_array_equal(ts._labels.numpy(), np.asarray(js._labels))
+    with torch.inference_mode():
+        got = ts.model.apply(ts.params, ts._x).numpy()
+    want = np.asarray(jax.jit(js.model.apply)(js.params, js._x))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.parametrize("name", ["deepseek-moe-16b", "jamba-v0.1-52b"])
@@ -202,9 +222,15 @@ def test_moe_configs_are_served(name):
 
 
 def test_a_config_passed_directly_is_checked():
-    cfg = dataclasses.replace(get_config("llama3.2-3b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        TS.Study(cfg, device="cpu")
+    """A config passed directly builds the study its name builds: reduced to
+    f32, the same sample and the same view."""
+    by_name = TS.Study("whisper-tiny", seq_len=16, batch=2, device="cpu")
+    direct = TS.Study(get_config("whisper-tiny"), seq_len=16, batch=2, device="cpu")
+    assert direct.cfg == by_name.cfg == reduced(get_config("whisper-tiny"), dtype="float32")
+    assert all(torch.equal(direct._x[k], by_name._x[k]) for k in by_name._x)
+    with torch.inference_mode():
+        assert torch.equal(direct.model.apply(direct.params, direct._x),
+                           by_name.model.apply(by_name.params, by_name._x))
 
 
 def test_the_study_refuses_a_missing_card():

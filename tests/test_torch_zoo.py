@@ -289,21 +289,21 @@ def test_bf16_leaves_cross_bit_for_bit_and_mismatched_trees_raise():
 
 def test_config_registry_knows_the_ten_names():
     """Every name the port serves equals the reference's config (deepseek-moe-16b
-    among them, all 28 layers MoE as the reference keeps them); the rest raise
-    naming the ROADMAP item that serves them: qwen3-moe-235b-a22b its own
-    (A13d), encoder-decoder and VLM A17."""
+    among them, all 28 layers MoE as the reference keeps them; whisper-tiny
+    and internvl2-76b with their frontends' fields); the one it does not,
+    qwen3-moe-235b-a22b, raises naming its ROADMAP item (A13d)."""
     from repro.configs import ARCHS as JARCHS
     assert ARCHS == JARCHS
-    assert set(UNPORTED) == {"internvl2-76b", "whisper-tiny", "qwen3-moe-235b-a22b"}
+    assert UNPORTED == {"qwen3-moe-235b-a22b": ("moe", "A13d")}
     for name in ARCHS:
         jcfg = jget_config(name)
         if name in UNPORTED:
-            item = {"moe": "A13d", "encdec": "A17", "vlm": "A17"}[jcfg.family]
-            assert UNPORTED[name] == (jcfg.family, item)
-            with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP {item}\b"):
+            with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP A13d\b"):
                 get_config(name)
         else:
             assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jcfg)
+    assert {get_config(n).family for n in ARCHS if n not in UNPORTED} == {
+        "dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
     deepseek = get_config("deepseek-moe-16b")
     assert deepseek.param_counts()["total"] == 16_879_568_896
     assert all(deepseek.is_moe_layer(i) for i in range(deepseek.n_layers))
@@ -312,10 +312,20 @@ def test_config_registry_knows_the_ten_names():
 
 
 def test_unported_branches_raise():
-    cfg = reduced(get_config("llama3.2-3b"))
-    for family in ("vlm", "encdec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-            T.init_params(0, dataclasses.replace(cfg, family=family), device="cpu")
+    """No branch of the model raises any more: the encoder-decoder and VLM
+    trees build (the encoder stacked on its own leading axis, the
+    projector), and the only refusal left is the registry's (qwen3-moe)."""
+    assert not hasattr(T, "_unported")
+    whisper = reduced(get_config("whisper-tiny"))
+    spec = T.param_spec(whisper)
+    assert tuple(spec["enc"]["layers"]["attn"]["wq"].shape) == (
+        whisper.n_enc_layers, whisper.d_model, whisper.n_heads * whisper.hd)
+    assert tuple(spec["enc"]["proj"].shape) == (whisper.d_frontend, whisper.d_model)
+    assert "cross" in spec["layers"]["l0"] and "cross" not in spec["enc"]["layers"]
+    vlm = reduced(get_config("internvl2-76b"))
+    assert set(T.param_spec(vlm)["projector"]) == {"w1", "b1", "w2", "b2"}
+    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
+        get_config("qwen3-moe-235b-a22b")
     # jamba as configured builds with its MoE on every second layer; with
     # moe=None (configs.SERVED) every FFN is dense
     jamba = reduced(get_config("jamba-v0.1-52b"))
