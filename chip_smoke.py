@@ -22,7 +22,8 @@ no install: it puts ``src/`` on the path itself).  Phases:
    each codec kernel launches 36 times in phases 4-5;
 5. serve 4 clients through ``run_clients`` and a 4-slot ``TailServer``;
 6. (Z2) hold ``flash_attention`` against its plain version at the
-   llama3.2-3b, jamba, deepseek-moe-16b and internvl2-76b prefill shapes,
+   llama3.2-3b, jamba, deepseek-moe-16b, internvl2-76b and
+   qwen3-moe-235b-a22b (a GQA group of 16) prefill shapes,
    four more masks (window, non-causal, Sq < Sk, ragged) and whisper-tiny's
    head dim 64 (its encoder, its decoder's self-attention, its
    cross-attention with Sq > Sk, and a window), each in bf16 (the
@@ -47,9 +48,9 @@ no install: it puts ``src/`` on the path itself).  Phases:
 11. (Z7) hold ``mamba_scan`` against its plain version at the jamba-v0.1-52b
     prefill (zero state), a ragged S from a given state, a decode step and
     the prefill again with the served model's own A;
-12. (Z8) serve jamba-v0.1-52b with its dense FFN (``moe=None``; its MoE
-    on one card waits for a depth cut, ROADMAP A13c) at full width and full
-    depth in bf16
+12. (Z8) serve jamba-v0.1-52b with its dense FFN (``moe=None``; with its
+    MoE the whole model does not fit one card: Z21 cuts it) at full width
+    and full depth in bf16
     through ``ServingEngine``, Z4's prompts, 16 new tokens each, each step's
     logits held against one full forward under Z4's rule; (Z9) the same in
     f32; (Z10) Z6's check for a one-period (8-layer) f32 copy of it;
@@ -72,6 +73,24 @@ no install: it puts ``src/`` on the path itself).  Phases:
     width and 24 of its 80 layers in bf16, the same way with 256 N(0, 1)
     patches before the prompts in the hold; (Z20b) 8 layers in f32; (Z20c)
     Z6's check for a depth-2 f32 copy;
+13c. (Z22a) serve qwen3-moe-235b-a22b (128 experts top-8, H 64 over K 4,
+    n_heads * head_dim twice d_model) at full width and 8 of 94 layers in
+    bf16 as Z18a serves deepseek, (Z22b) 4 layers in f32, (Z22c) Z6's check
+    for a depth-2 f32 copy; (Z21a) jamba-v0.1-52b with its MoE (behind
+    Mamba mixers and its attention) at full width and 16 of 32 layers in
+    bf16, (Z21b) one 8-layer period in f32, (Z21c) its first two f32 layers
+    (a Mamba mixer with its dense FFN, then one with its MoE) one at a time
+    on the card against the CPU; each prefill dropping pairs at capacity,
+    no decode step any, each step held to ``served_forward``;
+13d. (Z23) the continuous batcher (``ContinuousBatcher``, 4 slots) on
+    llama3.2-3b and rwkv6-1.6b whole in bf16, then in f32: 8 requests
+    arriving at ``BATCHER_ARRIVALS`` with ``BATCHER_MAX_NEW`` new tokens, so
+    slots free and refill mid-decode; every request finishes with its
+    tokens, the launches counted from the admits and the decode steps, and a
+    replay's logits at each tick, slot by slot, held against one forward
+    over each request's prompt and served tokens under Z4's rule, and in f32
+    against the request served alone at the f32 bar; one admit and one full
+    tick profiled;
 14. (Z11) the paper's split-point search on phase 4's VGG16 (the same
     seed): Table I/II from ``core.stats``, held equal to the reference's
     (``VGG16_TOTALS_16``); the Grad-CAM CS curve over the 18 feature ops on
@@ -131,7 +150,7 @@ no install: it puts ``src/`` on the path itself).  Phases:
 21. print the kernels' launch counts with their errors, times and bounds as
     one JSON line, then ``{"ok": true, "device": ...}``.
 
-Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18-Z20, Z11, Z12's training and its
+Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18-Z23, Z11, Z12's training and its
 deploy, Z13, Z14, each part of Z15, Z16, Z17 and its ``fit``) runs with the
 launch counts set to 0 just before it and read just after; a served run's
 prefill and decode are counted apart as well, and ``flash_attention``'s
@@ -183,6 +202,7 @@ from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as RS  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
+from repro_torch.models.mamba import mamba_seq  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layered import transformer_as_layered  # noqa: E402
 from repro_torch.data.synthetic import toy_image_iter, toy_images  # noqa: E402
@@ -202,6 +222,7 @@ from repro_torch.runtime.calibrate import CalibrationTable, calibrate  # noqa: E
 from repro_torch.runtime.engine import SplitRuntime, TailServer, run_clients  # noqa: E402
 from repro_torch.runtime.faults import FaultPlan, RecoveryPolicy  # noqa: E402
 from repro_torch.runtime.partition import make_partition  # noqa: E402
+from repro_torch.serving.continuous import ContinuousBatcher, StreamRequest  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 off the tensor cores,
@@ -264,6 +285,10 @@ FLASH_SHAPES = [
     ("window512_d64_f32", 4, 2000, 2000, 6, 6, 64, True, 512, torch.float32),
     ("internvl_prefill", 4, 2256, 2256, 64, 8, 128, True, None, torch.bfloat16),
     ("internvl_prefill_f32", 4, 2256, 2256, 64, 8, 128, True, None, torch.float32),
+    # qwen3-moe-235b-a22b's prefill on Z4's prompts: H 64 over K 4 (a GQA
+    # group of 16), n_heads * head_dim = 8192 against d_model 4096
+    ("qwen3_prefill", 4, 2000, 2000, 64, 4, 128, True, None, torch.bfloat16),
+    ("qwen3_prefill_f32", 4, 2000, 2000, 64, 4, 128, True, None, torch.float32),
 ]
 # flash_attention against its plain version, as tests/test_kernels.py holds
 # the TPU kernel to its ref
@@ -300,9 +325,29 @@ MAMBA_SHAPES = [("jamba_prefill", 4, 2000, 8192, 16, False, False),
 # another order (fused multiply-adds, the kernel's own sum over d_state in
 # two lanes' partials) and exp as ex2.approx of a pre-scaled argument
 MAMBA_RTOL = 1e-5
-# jamba-v0.1-52b as served (configs.SERVED: every FFN the dense SwiGLU; its
-# MoE on one card waits for a depth cut, ROADMAP A13c); Z4's prompts
+# jamba-v0.1-52b as served whole (configs.SERVED: every FFN the dense
+# SwiGLU; with its MoE, 51.5 B parameters, it does not fit one card); Z4's
+# prompts.  Z21: with its MoE (16 experts top-2 on every second layer) at
+# full width, cut in depth: 16 of 32 layers (two periods) in bf16 (52.0 GB),
+# one period in f32 (53.1 GB), and its first two layers (a Mamba mixer with
+# its dense FFN, then one with its MoE) in f32 on the card against the CPU
 JAMBA = "jamba-v0.1-52b"
+JAMBA_MOE_BF16_LAYERS, JAMBA_MOE_F32_LAYERS = 16, 8
+# Z22: qwen3-moe-235b-a22b (94 layers, every one MoE: 128 experts top-8;
+# H 64, K 4, head dim 128) at full width, cut in depth: 8 layers in bf16
+# (42.3 GB; at init the model, one stacked expert leaf of 12.9 GB and the f32
+# embedding of 2.5 GB), 4 in f32 (44.8 GB), and a depth-2 f32 copy against
+# the CPU (24.9 GB of f32 weights on the host, which held 100.7-101.8 GB
+# free on the card's machine)
+QWEN3 = "qwen3-moe-235b-a22b"
+QWEN3_BF16_LAYERS, QWEN3_F32_LAYERS = 8, 4
+# Z23: the continuous batcher (serving.continuous) on 4 slots, llama3.2-3b
+# and rwkv6-1.6b whole in bf16 and in f32: 8 requests, Z4's prompts (rwkv: Z5's) then 4
+# drawn with numpy seed 2 of 1-2000 tokens, arriving at these ticks with
+# these max_new, so slots free and refill while others decode
+BATCHER_SLOTS = 4
+BATCHER_ARRIVALS = (0, 0, 0, 0, 3, 5, 8, 13)
+BATCHER_MAX_NEW = (16, 4, 9, 16, 16, 7, 16, 5)
 # Z18: deepseek-moe-16b (the reference's config: all 28 layers MoE, 64 routed
 # experts top-6 and 2 shared, capacity factor 1.25) on Z4's prompts, in bf16
 # at full depth and in f32 cut to DEEPSEEK_F32_LAYERS (the full-depth f32
@@ -1833,8 +1878,10 @@ def device_breakdown(fn, top=6) -> dict:
 
 
 def served_cfg(arch, **changes):
-    """The configuration the port serves under ``arch``."""
-    return dataclasses.replace(get_config(arch), **SERVED.get(arch, {}), **changes)
+    """The configuration the port serves under ``arch``, with ``changes``
+    over ``configs.SERVED``'s (``moe=get_config(JAMBA).moe`` keeps jamba's
+    MoE)."""
+    return dataclasses.replace(get_config(arch), **{**SERVED.get(arch, {}), **changes})
 
 
 def per_token_launches(cfg) -> tuple:
@@ -1896,8 +1943,11 @@ def served_forward(params, cfg, seq, n_prompt, front=None) -> tuple:
     forward over ``seq`` would group prompt and served tokens together, at
     another capacity, and drop other prompt tokens.  So the MoE of the
     prompt positions runs at the default ``group_chunk`` and that of each
-    served position at ``group_chunk=1``.  Without MoE it is ``T.forward``,
-    fed ``front`` (frames or patch embeddings) beside the tokens."""
+    served position at ``group_chunk=1``.  The mixer before an MoE layer
+    (attention, or a Mamba mixer in the hybrid family) runs over the whole
+    of ``seq``, as it does over the prompt and then each served token.
+    Without MoE it is ``T.forward``, fed ``front`` (frames or patch
+    embeddings) beside the tokens."""
     if cfg.moe is None:
         return T.forward(params, cfg, {"tokens": seq, **(front or {})})["x"], {}
     descs, n_groups = T.block_structure(cfg)
@@ -1911,11 +1961,12 @@ def served_forward(params, cfg, seq, n_prompt, front=None) -> tuple:
                 x, _, _ = T.apply_layer_seq(p, desc, x, cfg, positions,
                                             window=cfg.sliding_window)
                 continue
-            if desc.mixer != "attn":
-                raise NotImplementedError("an MoE layer behind a Mamba mixer (ROADMAP A13c)")
             h = T._apply_norm(p["norm1"], x, cfg)
-            x = x + T._attn_seq(p["attn"], h, cfg, positions, causal=True,
-                                window=cfg.sliding_window)[0]
+            if desc.mixer == "attn":
+                x = x + T._attn_seq(p["attn"], h, cfg, positions, causal=True,
+                                    window=cfg.sliding_window)[0]
+            else:
+                x = x + mamba_seq(p["mamba"], h, cfg)[0]
             h = T._apply_norm(p["norm2"], x, cfg)
             f = []
             for phase, part, chunk in (("prefill", h[:, :n_prompt], M.GROUP_CHUNK),
@@ -1928,7 +1979,7 @@ def served_forward(params, cfg, seq, n_prompt, front=None) -> tuple:
     return T._apply_norm(params["final_norm"], x, cfg), drops
 
 
-def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
+def serve_zoo(arch, prompt_lens, dtype="bfloat16", **changes) -> dict:
     """Z4 / Z5 / Z8 / Z9: full-width, full-depth serving of ``arch`` through
     ``ServingEngine``; every kernel launches as ``per_token_launches`` says,
     in the served run and in a prefill and the decode steps counted apart.
@@ -1940,9 +1991,9 @@ def serve_zoo(arch, prompt_lens, dtype="bfloat16", n_layers=None) -> dict:
     the served run feeds zero frames or patches, as ``ServingEngine`` does;
     the replay and the forward are both fed ``front_inputs``, so the replay
     greedy-decodes other tokens than the served ones and is fed the served
-    ones.  ``n_layers`` cuts the depth."""
+    ones.  ``changes`` go to ``served_cfg`` (``n_layers`` cuts the depth)."""
     t_phase = time.perf_counter()
-    cfg = served_cfg(arch, dtype=dtype, **({"n_layers": n_layers} if n_layers else {}))
+    cfg = served_cfg(arch, dtype=dtype, **changes)
     per_prefill, per_step = per_token_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 1e9     # held by earlier phases
@@ -2127,9 +2178,9 @@ def split_lens(cfg, params, toks) -> dict:
 
 
 def e2e_check(arch, n_layers=2, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> dict:
-    """Z6 / Z10 / Z18c / Z19 / Z20: a full-width f32 copy of ``arch`` cut to
-    ``n_layers`` through the kernels on the card and through the plain
-    versions on the CPU, same weights (and the same ``front_inputs``)."""
+    """Z6 / Z10 / Z18c / Z19 / Z20 / Z22c: a full-width f32 copy of ``arch``
+    cut to ``n_layers`` through the kernels on the card and through the
+    plain versions on the CPU, same weights (and the same ``front_inputs``)."""
     cfg = served_cfg(arch, n_layers=n_layers, dtype="float32")
     per_prefill, per_step = per_token_launches(cfg)
     params_cpu = T.init_params(0, cfg, device="cpu")
@@ -2193,6 +2244,216 @@ def e2e_check(arch, n_layers=2, prompt_lens=(256, 181), n_new=8, rtol=1e-3) -> d
             raise AssertionError(f"Z18c {arch}: the prefill dropped no pair")
     del params_gpu
     torch.cuda.empty_cache()
+    return out
+
+
+def layers_check(arch, prompt_lens=(256, 181), rtol=1e-3, **changes) -> dict:
+    """Z21c: the first two layers of one full-width f32 period of ``arch``
+    (for jamba with its MoE: l0, a Mamba mixer with its dense FFN, and l1,
+    one with its MoE), each through ``T.apply_layer_seq`` on the card (the
+    kernels) and on the CPU (the plain versions) with the same weights, fed
+    the same input: N(0, 1) for l0, the CPU's output of l0 for l1.  A whole
+    f32 period would put 53 GB on the host."""
+    cfg = served_cfg(arch, dtype="float32", **changes)
+    descs, _ = T.block_structure(cfg)
+    gen = torch.Generator().manual_seed(0)
+    b, s = len(prompt_lens), max(prompt_lens)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((b, s, cfg.d_model))
+                         .astype(np.float32))
+    positions = torch.arange(s)
+    rows = []
+    for j, desc in enumerate(descs[:2]):
+        t0 = time.perf_counter()
+        p_cpu = T.init_layer(gen, desc, cfg, torch.device("cpu"))
+        p_gpu = tree_map(torch.Tensor.cuda, p_cpu)
+        with torch.inference_mode():
+            reset_launches()
+            got = T.apply_layer_seq(p_gpu, desc, x.cuda(), cfg, positions.cuda(),
+                                    window=cfg.sliding_window)[0]
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            want = T.apply_layer_seq(p_cpu, desc, x, cfg, positions,
+                                     window=cfg.sliding_window)[0]
+        check_launches(f"Z21c {arch} l{j}", counts, {"mamba_scan": int(desc.mixer == "mamba"),
+                                                    "flash_attention": int(desc.mixer == "attn")})
+        rel = float((got.cpu() - want).abs().max()) / float(want.abs().max())
+        row = {"layer": f"l{j}", "mixer": desc.mixer, "ffn": desc.ffn, "B": b, "S": s,
+               "rel_err": rel, "launches": counts,
+               "param_gb": sum(t.numel() * t.element_size() for t in tree_leaves(p_cpu)) / 1e9,
+               "s": time.perf_counter() - t0}
+        if desc.ffn == "moe":
+            with torch.inference_mode():
+                h = T._apply_norm(p_cpu["norm1"], x, cfg)
+                h = T._apply_norm(p_cpu["norm2"], x + mamba_seq(p_cpu["mamba"], h, cfg)[0], cfg)
+                row["drops"] = int(M.dropped_pairs(h, p_cpu["ffn"], cfg.moe))
+                row["pairs"] = b * s * cfg.moe.top_k
+        rows.append(row)
+        print(f"Z21c {arch}", json.dumps(row), flush=True)
+        if not torch.isfinite(got).all() or rel > rtol:
+            raise AssertionError(f"Z21c {arch} l{j}: the card's output off the CPU's by {rel} "
+                                 f"of max (bar {rtol})")
+        x = want
+        del p_gpu, got
+        torch.cuda.empty_cache()
+    return {"arch": arch, "dtype": "float32", "layers": rows}
+
+
+def batcher_requests(cfg, prompt_lens) -> list:
+    """Z23's requests: ``prompt_lens`` drawn as ``serve_zoo`` draws them, then
+    4 prompts of 1-2000 tokens from numpy seed 2; ``BATCHER_ARRIVALS`` and
+    ``BATCHER_MAX_NEW``."""
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompt_lens]
+    rng = np.random.default_rng(2)
+    prompts += [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                for n in rng.integers(1, 2001, len(BATCHER_ARRIVALS) - len(prompts))]
+    return [StreamRequest(i, p, max_new=m, arrival=a)
+            for i, (p, m, a) in enumerate(zip(prompts, BATCHER_MAX_NEW, BATCHER_ARRIVALS))]
+
+
+def batcher_run(arch, prompt_lens, dtype="bfloat16") -> dict:
+    """Z23: ``ContinuousBatcher`` on ``BATCHER_SLOTS`` slots, ``arch`` whole in
+    ``dtype``.  Each admit prefills one request (its kernels once a layer),
+    each decode step runs every slot (the scans once a layer); the launches
+    are counted from the admits and the steps.  Every request must finish
+    with ``max_new`` tokens in the vocabulary.  Then a second batcher replays
+    the same requests, its step wrapped to keep each slot's logits at each
+    tick, and must serve the same tokens; each request's logits at its ticks
+    are held under Z4's rule against one full forward over its prompt and
+    served tokens.  In f32 they are also held at ``ZOO_RTOL["float32"]``
+    against the request served alone (``T.prefill`` and ``T.serve_step`` at
+    an int position), which holds the slot rows and refills where Z4's bar
+    is loose: bf16's one-ulp response puts rwkv6-1.6b's at 0.4-2 of max
+    |logit|, and even f32's is about 1e-2 at its one-token prompt.
+    Last, one admit of the longest prompt and one tick with every slot
+    active run under ``device_breakdown``."""
+    t_phase = time.perf_counter()
+    cfg = served_cfg(arch, dtype=dtype)
+    per_prefill, per_step = per_token_launches(cfg)
+    params = T.init_params(0, cfg, device="cuda")
+    reqs = batcher_requests(cfg, prompt_lens)
+    cache_len = max(len(r.prompt) for r in reqs) + max(BATCHER_MAX_NEW)
+    batcher = ContinuousBatcher(cfg, params, n_slots=BATCHER_SLOTS, cache_len=cache_len,
+                                device="cuda")
+
+    def timed_admits(b) -> list:
+        """Wrap ``b``'s admit to time each behind a synchronize."""
+        took, admit = [], b._admit
+
+        def timed_admit(req, slot):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            admit(req, slot)
+            torch.cuda.synchronize()
+            took.append(time.perf_counter() - t0)
+        b._admit = timed_admit
+        return took
+    admit_s = timed_admits(batcher)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = batcher.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {k: len(reqs) * n + batcher.steps * per_step[k] for k, n in per_prefill.items()}
+    check_launches(f"Z23 {arch}", counts, want)
+    for r in reqs:
+        if not r.done or len(r.out) != r.max_new or not all(0 <= t < cfg.vocab for t in r.out):
+            raise AssertionError(f"Z23 {arch}: request {r.rid} (max_new {r.max_new}) got {r.out}")
+    if len(done) != len(reqs):
+        raise AssertionError(f"Z23 {arch}: {len(done)} of {len(reqs)} requests finished")
+    out = {"arch": arch, "dtype": cfg.dtype, "slots": BATCHER_SLOTS, "cache_len": cache_len,
+           "prompt_lens": [len(r.prompt) for r in reqs], "arrivals": list(BATCHER_ARRIVALS),
+           "max_new": list(BATCHER_MAX_NEW), "finish_order": [r.rid for r in done],
+           "admits": len(admit_s), "steps": batcher.steps, "run_ms": 1e3 * run_s,
+           "admit_ms": [1e3 * t for t in admit_s],
+           "tick_ms": 1e3 * (run_s - sum(admit_s)) / batcher.steps,
+           "launches": counts, "launches_want": want}
+
+    # the replay: the same requests on a fresh batcher, each step's logits kept
+    replay = ContinuousBatcher(cfg, params, n_slots=BATCHER_SLOTS, cache_len=cache_len,
+                               device="cuda")
+    ticks, step = [], replay._step
+
+    def kept_step(cache, token, pos):
+        logits, cache = step(cache, token, pos)
+        ticks.append(([(slot, r.rid) for slot, r in replay.pool.occupied()], logits))
+        return logits, cache
+    replay._step = kept_step
+    replay_admit_s = timed_admits(replay)
+    again = batcher_requests(cfg, prompt_lens)
+    replay.run(again)
+    if [r.out for r in again] != [r.out for r in reqs]:
+        raise AssertionError(f"Z23 {arch}: the replay served other tokens")
+    out["replay_admit_ms"] = [1e3 * t for t in replay_admit_s]
+    by_rid = {r.rid: [] for r in reqs}
+    for slots, logits in ticks:
+        for slot, rid in slots:
+            by_rid[rid].append(logits[slot])
+    holds = []
+    with torch.inference_mode():
+        for r in reqs:
+            steps = torch.stack(by_rid[r.rid])                    # (max_new - 1, V)
+            served = torch.tensor(r.out, dtype=torch.int32, device="cuda")
+            seq = torch.cat([torch.from_numpy(r.prompt).cuda(), served[:-1]])[None]
+            first = len(r.prompt)             # the forward's position of the first tick
+            flogits = T.logits_from_x(params, cfg,
+                                      T.forward(params, cfg, {"tokens": seq})["x"])[0, first:]
+            flogits = flogits.float()
+            flipped = {**params, "embed": ulp_flip(params["embed"])}
+            ulp = T.logits_from_x(flipped, cfg,
+                                  T.forward(flipped, cfg, {"tokens": seq})["x"])[0, first:]
+            del flipped
+            top = float(flogits.abs().max())
+            ulp_err = float((ulp.float() - flogits).abs().max())
+            row_err = (steps - flogits).abs().amax(-1)
+            rel = float(row_err.max()) / top
+            bar = max(ZOO_RTOL[cfg.dtype], ULP_FACTOR * ulp_err / top)
+            differ = flogits.argmax(-1) != served[1:].long()
+            margins = top2_margin(flogits)
+            if not torch.isfinite(steps).all() or rel > bar:
+                raise AssertionError(f"Z23 {arch}: request {r.rid}'s tick logits off the forward's "
+                                     f"by {rel} of max |logit| (bar {bar})")
+            if bool((differ & (margins > 2 * row_err)).any()):
+                raise AssertionError(f"Z23 {arch}: request {r.rid}'s tokens differ from the "
+                                     f"forward's at margins {margins[differ].tolist()}")
+            hold = {"rid": r.rid, "ticks": len(by_rid[r.rid]), "rel_err": rel, "bar": bar,
+                    "tokens_differ": int(differ.sum())}
+            if cfg.dtype == "float32":
+                logits, cache, pos = T.prefill(params, cfg, {"tokens": seq[:, :first]}, cache_len)
+                alone = []
+                for i in range(len(r.out) - 1):
+                    logits, cache = T.serve_step(params, cfg, cache, served[None, i:i + 1], pos + i)
+                    alone.append(logits[0])
+                del cache
+                hold["vs_alone"] = float((steps - torch.stack(alone)).abs().max()) / top
+                if hold["vs_alone"] > ZOO_RTOL["float32"]:
+                    raise AssertionError(f"Z23 {arch}: request {r.rid}'s tick logits off the "
+                                         f"request served alone by {hold['vs_alone']} of max "
+                                         f"|logit| (bar {ZOO_RTOL['float32']})")
+            holds.append(hold)
+    out["vs_forward"] = holds
+
+    # one admit of the longest prompt into a free pool, then one tick with
+    # every slot active: the other slots admitted too, each request one
+    # token from its end, so ``run`` makes exactly one tick
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    fresh = [StreamRequest(r.rid, r.prompt, max_new=2) for r in reqs[:BATCHER_SLOTS]]
+    fresh[0] = StreamRequest(longest.rid, longest.prompt, max_new=2)
+    with torch.inference_mode():
+        out["admit_profile"] = device_breakdown(lambda: replay._admit(fresh[0], 0))
+        for slot, r in enumerate(fresh[1:], 1):
+            replay._admit(r, slot)
+    out["admit_profile"]["prompt_len"] = len(longest.prompt)
+    steps_before = replay.steps
+    out["tick_profile"] = device_breakdown(lambda: replay.run([]))
+    if replay.steps != steps_before + 1 or not all(r.done for r in fresh):
+        raise AssertionError(f"Z23 {arch}: the profiled run made {replay.steps - steps_before} "
+                             f"ticks, want 1")
+    del params, batcher, replay
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2319,6 +2580,39 @@ def main() -> int:
     internvl_e2e = e2e_check(INTERNVL)
     print(f"Z20c end to end {INTERNVL}", json.dumps(internvl_e2e), flush=True)
     print(f"Z20 took {time.perf_counter() - t0:.1f} s", flush=True)
+    # Z22: qwen3-moe-235b-a22b at full width, cut in depth: (a) bf16, (b)
+    # f32, (c) Z6's check at depth 2
+    t0 = time.perf_counter()
+    qwen3 = {"bfloat16": serve_zoo(QWEN3, LLAMA_PROMPTS, n_layers=QWEN3_BF16_LAYERS)}
+    print(f"Z22a served {QWEN3}", json.dumps(qwen3["bfloat16"]), flush=True)
+    qwen3["float32"] = serve_zoo(QWEN3, LLAMA_PROMPTS, dtype="float32", n_layers=QWEN3_F32_LAYERS)
+    print(f"Z22b served {QWEN3} float32", json.dumps(qwen3["float32"]), flush=True)
+    qwen3_e2e = e2e_check(QWEN3)
+    print(f"Z22c end to end {QWEN3}", json.dumps(qwen3_e2e), flush=True)
+    print(f"Z22 took {time.perf_counter() - t0:.1f} s", flush=True)
+    # Z21: jamba-v0.1-52b with its MoE at full width, cut in depth: (a) two
+    # periods in bf16, (b) one in f32, (c) its first two layers in f32
+    # against the CPU
+    t0 = time.perf_counter()
+    moe = get_config(JAMBA).moe
+    jamba_moe = {"bfloat16": serve_zoo(JAMBA, LLAMA_PROMPTS, n_layers=JAMBA_MOE_BF16_LAYERS,
+                                       moe=moe)}
+    print(f"Z21a served {JAMBA} with its MoE", json.dumps(jamba_moe["bfloat16"]), flush=True)
+    jamba_moe["float32"] = serve_zoo(JAMBA, LLAMA_PROMPTS, dtype="float32",
+                                     n_layers=JAMBA_MOE_F32_LAYERS, moe=moe)
+    print(f"Z21b served {JAMBA} with its MoE float32", json.dumps(jamba_moe["float32"]),
+          flush=True)
+    jamba_layers = layers_check(JAMBA, moe=moe)
+    print(f"Z21 took {time.perf_counter() - t0:.1f} s", flush=True)
+    # Z23: the continuous batcher on llama3.2-3b and rwkv6-1.6b whole, bf16,
+    # then f32 also held to each request served alone
+    t0 = time.perf_counter()
+    batched = {}
+    for dtype in ("bfloat16", "float32"):
+        for arch, prompts in (("llama3.2-3b", LLAMA_PROMPTS), ("rwkv6-1.6b", RWKV_PROMPTS)):
+            batched[f"{arch} {dtype}"] = row = batcher_run(arch, prompts, dtype)
+            print(f"Z23 batcher {arch} {dtype}", json.dumps(row), flush=True)
+    print(f"Z23 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Z11, Z12: the split-point search, bottleneck training and the deploy
     # of the trained AEs, on phase 4's VGG16 (the same seed), last so that
@@ -2395,7 +2689,14 @@ def main() -> int:
             f"Z19 {WHISPER} end to end": whisper_e2e["launches"],
             **{f"Z20 {INTERNVL} {dt} depth {r['n_layers']}": r["launches"]
                for dt, r in internvl.items()},
-            f"Z20c {INTERNVL} depth 2": internvl_e2e["launches"]}
+            f"Z20c {INTERNVL} depth 2": internvl_e2e["launches"],
+            **{f"Z22 {QWEN3} {dt} depth {r['n_layers']}": r["launches"] for dt, r in qwen3.items()},
+            f"Z22a {QWEN3} prefill": qwen3["bfloat16"]["prefill_launches"],
+            f"Z22c {QWEN3} depth 2": qwen3_e2e["launches"],
+            **{f"Z21 {JAMBA} with its MoE {dt} depth {r['n_layers']}": r["launches"]
+               for dt, r in jamba_moe.items()},
+            **{f"Z21c {JAMBA} {row['layer']}": row["launches"] for row in jamba_layers["layers"]},
+            **{f"Z23 {key} batcher": r["launches"] for key, r in batched.items()}}
 
     def entry(name, rows, replaces, headline):
         head = next(e for e in rows if e["shape"] == headline)

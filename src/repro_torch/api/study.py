@@ -47,9 +47,8 @@ transformer ``ModelConfig`` (viewed through ``transformer_as_layered``),
 or a config name: ``"vgg16"`` builds the small trainable VGG variant, any
 ``repro_torch.configs`` arch name (``"llama3.2-3b"``, ``"rwkv6-1.6b"``,
 ...) resolves through the registry and is reduced to its small variant
-unless ``reduce=False``.  A name the port does not serve yet
-(qwen3-moe-235b-a22b) raises ``NotImplementedError`` naming its ROADMAP
-item.  As the reference's, a whisper view skips the encoder and every
+unless ``reduce=False``; every name of the registry is served.  As the
+reference's, a whisper view skips the encoder and every
 cross-attention (its blocks get no encoder output), and a VLM view's
 embed layer puts the projected patches before the tokens.
 

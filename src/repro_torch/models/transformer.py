@@ -322,29 +322,37 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
 
 
 def _attn_decode(p, h, cfg, cache_l, pos, window):
-    """h: (B,1,D); cache_l: {'k','v','kv_pos'} (B,Sc,K,hd), written in place."""
+    """h: (B,1,D); cache_l: {'k','v','kv_pos'} (B,Sc,K,hd), written in place.
+    ``pos``: the new token's position, an int, or a (B,) int32 tensor of
+    each row's own (``serving.continuous.serve_step_multi``)."""
     b = h.shape[0]
     hd = cfg.hd
     q = dense(h, p["wq"], p.get("bq")).reshape(b, 1, cfg.n_heads, hd)
     k = dense(h, p["wk"], p.get("bk")).reshape(b, 1, cfg.n_kv_heads, hd)
     v = dense(h, p["wv"], p.get("bv")).reshape(b, 1, cfg.n_kv_heads, hd)
-    cos, sin = rope_tables(torch.tensor([pos], device=h.device), hd, cfg.rope_theta)
+    # the reference writes slot pos % sc with dynamic_update_slice (a row's
+    # own slot with a scatter) into a new cache; the port writes the same
+    # slots of the one cache in place
+    sc = cache_l["k"].shape[1]
+    if isinstance(pos, int):
+        positions, rows = torch.tensor([pos], device=h.device), slice(None)
+        q_pos = torch.full((b,), pos, dtype=torch.int32, device=h.device)
+    else:
+        positions, rows, q_pos = pos[:, None], torch.arange(b, device=h.device), pos
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    # the reference writes slot pos % sc with dynamic_update_slice into a new
-    # cache; the port writes the same slot of the one cache in place
-    slot = pos % cache_l["k"].shape[1]
-    cache_l["k"][:, slot] = k[:, 0]
-    cache_l["v"][:, slot] = v[:, 0]
-    cache_l["kv_pos"][:, slot] = pos
-    q_pos = torch.full((b,), pos, dtype=torch.int32, device=h.device)
+    slot = pos % sc
+    cache_l["k"][rows, slot] = k[:, 0]
+    cache_l["v"][rows, slot] = v[:, 0]
+    cache_l["kv_pos"][rows, slot] = pos
     out = decode_attention(q, cache_l["k"], cache_l["v"], cache_l["kv_pos"], q_pos, window)
     return dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
 
 
 def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
     """One sublayer over one token; ``cache_l`` (this group's views) is
-    updated in place."""
+    updated in place.  ``pos``: an int, or a (B,) tensor (``_attn_decode``)."""
     h = _apply_norm(p["norm1"], x, cfg)
     if desc.mixer == "attn":
         att = _attn_decode(p["attn"], h, cfg, cache_l, pos, window)
@@ -380,14 +388,16 @@ def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
     return x + f
 
 
-def serve_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor, pos: int):
-    """One decode step.  token: (B,1) int; pos: the new token's position.
+def serve_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor, pos):
+    """One decode step.  token: (B,1) int; pos: the new token's position, an
+    int, or a (B,) int32 tensor of each row's own (``_attn_decode``).
 
     Returns (logits (B,V) f32, cache).  Unlike the reference, which returns
     a new cache, the port updates ``cache`` in place and returns it.
     """
     descs, n_groups = block_structure(cfg)
-    pos = int(pos)
+    if not torch.is_tensor(pos):
+        pos = int(pos)
     x = params["embed"][token.long()]
     for g in range(n_groups):
         group_p, cache_g = _group(params["layers"], g), _group(cache, g)

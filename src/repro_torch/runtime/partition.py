@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import bottleneck as B
 from repro_torch.core.split import validate_cuts
 from repro_torch.device import resolve_device
 from repro_torch.models.layered import LayeredModel
@@ -89,6 +90,13 @@ class Partition:
         """Unsplit reference forward (equivalence oracle)."""
         return self.tail(self.head(x))
 
+    def forward_stages(self, x: torch.Tensor) -> torch.Tensor:
+        """Run the whole stage chain in turn (no codec): equal to :meth:`full`
+        by construction, the multi-stage equivalence oracle."""
+        for k in range(self.n_stages):
+            x = self.stage(k)(x)
+        return x
+
     # ----------------------------------------------------- fused boundary ----
     def wire_kinds(self, quantize: bool = True) -> tuple:
         """Per-hop payload kind ('f32' | 'int8' | 'ae8')."""
@@ -153,9 +161,30 @@ class Partition:
         return tuple(self.model.activation_shapes(
             self.params, batch)[self.splits[hop]])
 
+    def describe(self) -> str:
+        """The cut layers in one line, as the reference writes it: head and
+        tail for one cut, each stage's layers for several, then the AEs."""
+        m = self.model
+        if len(self.splits) == 1:
+            return (f"{m.name}: head=[0..{self.split_layer}] "
+                    f"tail=[{self.split_layer + 1}..{len(m.layers) - 1}]"
+                    f"{' +ae' if self.ae is not None else ''}")
+        bounds = self._bounds
+        stages = " | ".join(f"stage{i}=[{a}..{b - 1}]"
+                            for i, (a, b) in enumerate(zip(bounds, bounds[1:])))
+        aes = sorted(self.ae_map)
+        return f"{m.name}: {stages}{' +ae@' + str(aes) if aes else ''}"
+
 
 def make_partition(model: LayeredModel, params, split_layer,
                    ae: Optional[dict] = None, *, device="cuda") -> Partition:
     """Build (and legality-check) a runnable partition at one cut (int)
     or an ordered cut list (sequence)."""
     return Partition(model, params, split_layer, ae, device)
+
+
+def head_with_encoder(part: Partition, x: torch.Tensor) -> torch.Tensor:
+    """The paper's edge stage: head layers + AE encoder, the f32 latent (no
+    quantisation), through ``core.bottleneck.head_forward``; kept for parity
+    checks between the runtime path and the simulator's SC forward."""
+    return B.head_forward(part.model, part.params, part.ae, part.split_layer, x)

@@ -193,7 +193,9 @@ FLASH_SHAPES = [(2, 77, 77, 4, 2, 128, True, None), (1, 200, 200, 8, 2, 128, Tru
                 (2, 77, 77, 4, 2, 64, True, None), (1, 50, 130, 6, 6, 64, True, 40),
                 (1, 1500, 1500, 6, 6, 64, False, None), (2, 300, 150, 6, 6, 64, False, None),
                 (1, 2000, 1500, 6, 6, 64, False, None), (1, 260, 130, 4, 2, 128, False, None),
-                (2, 9, 1, 4, 2, 64, False, None)]
+                (2, 9, 1, 4, 2, 64, False, None),
+                # GQA groups of 16 (qwen3-moe-235b-a22b: H 64 over K 4)
+                (1, 256, 256, 16, 1, 128, True, None), (2, 200, 200, 64, 4, 128, True, None)]
 # beside the absolute bf16 bar, element by element, one relative to |o|: the
 # kernel rounds each softmax weight and each output to bf16, at most 2**-8
 # of the value each, so |kernel - plain| <= 2**-8 (|o| + P|V|), P|V| the
@@ -348,7 +350,8 @@ def test_mamba_scan_matches_plain(cuda, shape):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b", "jamba-v0.1-52b",
-                                  "deepseek-moe-16b", "whisper-tiny", "internvl2-76b"])
+                                  "deepseek-moe-16b", "whisper-tiny", "internvl2-76b",
+                                  "qwen3-moe-235b-a22b"])
 def test_zoo_serving_on_the_card_matches_the_cpu_path(cuda, arch):
     import dataclasses
     # the head dims the kernels take, each config's own: 128, or 64 (whisper's
@@ -367,11 +370,39 @@ def test_zoo_serving_on_the_card_matches_the_cpu_path(cuda, arch):
     kernels = {"llama3.2-3b": ["flash_attention"], "rwkv6-1.6b": ["rwkv6_scan"],
                "jamba-v0.1-52b": ["flash_attention", "mamba_scan"],
                "deepseek-moe-16b": ["flash_attention"], "whisper-tiny": ["flash_attention"],
-               "internvl2-76b": ["flash_attention"]}[arch]
+               "internvl2-76b": ["flash_attention"],
+               "qwen3-moe-235b-a22b": ["flash_attention"]}[arch]
     assert all(sum(counts[k].values()) > 0 for k in kernels)
     want = ServingEngine(cfg, params_cpu, cache_slots=80, device="cpu").run(
         [Request(i, p, max_new=4) for i, p in enumerate(prompts)])
     assert [r.out for r in got] == [r.out for r in want]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b", "deepseek-moe-16b"])
+def test_continuous_batcher_on_the_card_matches_the_cpu_path(cuda, arch):
+    """Staggered arrivals on 3 slots, slots refilled mid-decode: the same
+    tokens on the card (its kernels at each admit, and rwkv's scan at each
+    tick) as on the CPU."""
+    import dataclasses
+    from repro_torch.serving.continuous import ContinuousBatcher, StreamRequest
+    cfg = dataclasses.replace(reduced(get_config(arch), head_dim=get_config(arch).hd,
+                                      rwkv_head_dim=64), dtype="float32")
+    params_cpu = T.init_params(0, cfg, device="cpu")
+    params = _to(params_cpu, cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (9, 1, 40, 4, 17)]
+
+    def run(p, dev):
+        reqs = [StreamRequest(i, x, max_new=m, arrival=a)
+                for i, (x, m, a) in enumerate(zip(prompts, (5, 2, 6, 3, 4), (0, 0, 0, 1, 3)))]
+        ContinuousBatcher(cfg, p, n_slots=3, cache_len=48, device=dev).run(reqs)
+        return [r.out for r in reqs]
+    reset_launches()
+    got = run(params, cuda)
+    counts = launch_counts()
+    kernel = "rwkv6_scan" if arch == "rwkv6-1.6b" else "flash_attention"
+    assert sum(counts[kernel].values()) > 0
+    assert got == run(params_cpu, "cpu")
 
 
 def test_init_params_holds_the_model_once(cuda):

@@ -190,3 +190,70 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(setup, name):
     _, _, tm, tp, _, taes, _ = setup
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _entry_points(tm, tp, taes)[name]()
+
+
+def _partitions(setup, cuts, with_ae):
+    """The reference's and the port's partition at ``cuts``, with the AEs
+    of ``REPRESENTATIVE`` cuts among them where ``with_ae``."""
+    from repro.runtime.partition import make_partition as jmake_partition
+    jm, jp, tm, tp, jaes, taes, _ = setup
+    single = isinstance(cuts, int)
+    keys = [c for c in ([cuts] if single else cuts) if c in jaes] if with_ae else []
+    if single:
+        jae, tae = (jaes[cuts], taes[cuts]) if keys else (None, None)
+    else:
+        jae = {c: jaes[c] for c in keys} or None
+        tae = {c: taes[c] for c in keys} or None
+    return (jmake_partition(jm, jp, cuts, jae),
+            make_partition(tm, tp, cuts, tae, device="cpu"))
+
+
+# the three-cut, four-stage partition of tests/test_multitier.py:110-123
+# (cut points 1, 3 and 5), one with AEs at two cuts, and one cut with and
+# without its AE
+DESCRIBE_CASES = {"three_cuts": ((CUTS[1], CUTS[3], CUTS[5]), False),
+                  "two_cuts_two_aes": ((6, 9), True),
+                  "one_cut": (9, False), "one_cut_ae": (9, True)}
+
+
+@pytest.mark.parametrize("case", list(DESCRIBE_CASES))
+def test_describe_and_forward_stages_match_reference(setup, case):
+    """``describe`` gives the reference's string, and ``forward_stages``
+    (the stage chain, no codec) the reference's output at 1e-5 of max and
+    the port's own unsplit forward."""
+    cuts, with_ae = DESCRIBE_CASES[case]
+    jpart, part = _partitions(setup, cuts, with_ae)
+    assert part.describe() == jpart.describe()
+    x = setup[-1]
+    y = part.forward_stages(torch.from_numpy(x)).numpy()
+    want = np.asarray(jpart.forward_stages(jax.numpy.asarray(x)))
+    assert np.abs(y - want).max() <= 1e-5 * np.abs(want).max()
+    np.testing.assert_array_equal(y, part.full(torch.from_numpy(x)).numpy())
+    if case == "three_cuts":
+        assert part.n_stages == 4 and "stage2" in part.describe()
+
+
+@pytest.mark.parametrize("cut", REPRESENTATIVE)
+def test_head_with_encoder_matches_reference(setup, cut):
+    """The edge stage and the AE encoder: the f32 latent, unquantised, at
+    1e-5 of max of the reference's."""
+    from repro.runtime.partition import head_with_encoder as jhead_with_encoder
+    from repro_torch.runtime.partition import head_with_encoder
+    jpart, part = _partitions(setup, cut, True)
+    x = setup[-1]
+    z = head_with_encoder(part, torch.from_numpy(x))
+    want = np.asarray(jhead_with_encoder(jpart, jax.numpy.asarray(x)))
+    assert z.dtype == torch.float32 and tuple(z.shape) == want.shape
+    assert np.abs(z.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_all_configs_equal_the_reference():
+    """``configs.all_configs``: the reference's ten names, in its order, each
+    config equal field by field."""
+    import dataclasses
+    from repro.configs import all_configs as jall_configs
+    from repro_torch.configs import all_configs
+    got, want = all_configs(), jall_configs()
+    assert list(got) == list(want) and len(got) == 10
+    for name in want:
+        assert dataclasses.asdict(got[name]) == dataclasses.asdict(want[name]), name

@@ -22,7 +22,7 @@ from repro.models.common import reduced as jreduced  # noqa: E402
 from repro.models.layered import transformer_as_layered as j_layered  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
-from repro_torch.configs import ARCHS, SERVED, UNPORTED, get_config  # noqa: E402
+from repro_torch.configs import ARCHS, SERVED, get_config  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import reduced  # noqa: E402
@@ -288,34 +288,34 @@ def test_bf16_leaves_cross_bit_for_bit_and_mismatched_trees_raise():
 
 
 def test_config_registry_knows_the_ten_names():
-    """Every name the port serves equals the reference's config (deepseek-moe-16b
-    among them, all 28 layers MoE as the reference keeps them; whisper-tiny
-    and internvl2-76b with their frontends' fields); the one it does not,
-    qwen3-moe-235b-a22b, raises naming its ROADMAP item (A13d)."""
+    """Every one of the ten names equals the reference's config, in all six
+    families (deepseek-moe-16b all 28 layers MoE as the reference keeps
+    them, qwen3-moe-235b-a22b with its 128 experts top-8 over H 64 and K 4,
+    whisper-tiny and internvl2-76b with their frontends' fields)."""
     from repro.configs import ARCHS as JARCHS
     assert ARCHS == JARCHS
-    assert UNPORTED == {"qwen3-moe-235b-a22b": ("moe", "A13d")}
     for name in ARCHS:
-        jcfg = jget_config(name)
-        if name in UNPORTED:
-            with pytest.raises(NotImplementedError, match=rf"{name}.*ROADMAP A13d\b"):
-                get_config(name)
-        else:
-            assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jcfg)
-    assert {get_config(n).family for n in ARCHS if n not in UNPORTED} == {
+        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jget_config(name))
+    assert {get_config(n).family for n in ARCHS} == {
         "dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
     deepseek = get_config("deepseek-moe-16b")
     assert deepseek.param_counts()["total"] == 16_879_568_896
     assert all(deepseek.is_moe_layer(i) for i in range(deepseek.n_layers))
+    qwen3 = get_config("qwen3-moe-235b-a22b")
+    assert qwen3.n_heads * qwen3.hd == 2 * qwen3.d_model
+    assert qwen3.param_counts() == jget_config("qwen3-moe-235b-a22b").param_counts()
     with pytest.raises(KeyError):
         get_config("gpt-5")
 
 
 def test_unported_branches_raise():
-    """No branch of the model raises any more: the encoder-decoder and VLM
-    trees build (the encoder stacked on its own leading axis, the
-    projector), and the only refusal left is the registry's (qwen3-moe)."""
+    """No branch of the model or the registry raises any more: the
+    encoder-decoder and VLM trees build (the encoder stacked on its own
+    leading axis, the projector), and so does a reduced qwen3-moe tree,
+    every layer MoE; the registry has no refusal left."""
     assert not hasattr(T, "_unported")
+    import repro_torch.configs as C
+    assert not hasattr(C, "UNPORTED")
     whisper = reduced(get_config("whisper-tiny"))
     spec = T.param_spec(whisper)
     assert tuple(spec["enc"]["layers"]["attn"]["wq"].shape) == (
@@ -324,8 +324,12 @@ def test_unported_branches_raise():
     assert "cross" in spec["layers"]["l0"] and "cross" not in spec["enc"]["layers"]
     vlm = reduced(get_config("internvl2-76b"))
     assert set(T.param_spec(vlm)["projector"]) == {"w1", "b1", "w2", "b2"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A13d"):
-        get_config("qwen3-moe-235b-a22b")
+    qwen3 = reduced(get_config("qwen3-moe-235b-a22b"))
+    for spec in (T.param_spec(qwen3), T.init_params(0, qwen3, device="cpu")):
+        assert set(spec["layers"]) == {"l0"}
+        w = spec["layers"]["l0"]["ffn"]
+        assert tuple(w["router"].shape) == (qwen3.n_layers, qwen3.d_model, qwen3.moe.n_experts)
+        assert "shared" not in w
     # jamba as configured builds with its MoE on every second layer; with
     # moe=None (configs.SERVED) every FFN is dense
     jamba = reduced(get_config("jamba-v0.1-52b"))
@@ -379,3 +383,126 @@ def test_port_imports_nothing_of_jax_or_the_reference():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), f"{f.name} imports {n}"
+
+
+# qwen3-moe-235b-a22b at a small width that keeps what ``reduced`` erases:
+# n_heads * head_dim (256) unequal to d_model (128), a GQA group of 16, and
+# top-8 routing over 16 experts (capacity int(T * 8/16 * 1.25) a group)
+QWEN3_SHAPED = dict(n_layers=2, d_model=128, n_heads=16, n_kv_heads=1, head_dim=16,
+                    d_ff=64, vocab=512, dtype="float32")
+# f32 against the reference: the two frameworks sum in other orders
+QWEN3_TOL = 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _qwen3_pair():
+    from repro.models.common import MoEConfig as JMoEConfig
+    from repro_torch.models.common import MoEConfig
+    moe = dict(n_experts=16, top_k=8, d_expert=32)
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), moe=MoEConfig(**moe),
+                              **QWEN3_SHAPED)
+    jcfg = dataclasses.replace(jget_config("qwen3-moe-235b-a22b"), moe=JMoEConfig(**moe),
+                               **QWEN3_SHAPED)
+    jp = jax.jit(lambda: JT.init_params(jax.random.PRNGKey(3), jcfg))()
+    tp = transformer_params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+    return cfg, jcfg, tp, jp
+
+
+def _close(got, want, tol):
+    """``got`` within ``tol`` of max |want|."""
+    want = np.asarray(want, np.float32)
+    assert np.abs(np.asarray(got, np.float32) - want).max() <= tol * np.abs(want).max()
+
+
+def test_qwen3_shaped_forward_and_routing_equal_the_reference(monkeypatch):
+    """The forward at 1e-5 of max, and each MoE layer's routing (every
+    token's 8 experts in order, the kept pairs) exactly the reference's on
+    the port's input to the layer, with pairs dropped at capacity."""
+    from test_torch_moe import _ref_routing
+    cfg, jcfg, tp, jp = _qwen3_pair()
+    assert cfg.n_heads * cfg.hd != cfg.d_model and cfg.n_heads // cfg.n_kv_heads == 16
+    toks = _tokens(cfg, 2, 24, 3)
+    inputs, plain = [], M.moe_ffn
+
+    def kept(x, p, m, **kw):
+        inputs.append((x, p))
+        return plain(x, p, m, **kw)
+    monkeypatch.setattr(M, "moe_ffn", kept)
+    _close(_logits(tp, cfg, toks), _jlogits(jp, jcfg, toks), QWEN3_TOL)
+    assert len(inputs) == cfg.n_layers
+    for x, p in inputs:
+        r = M.route(M.groups(x), p["router"], cfg.moe)
+        jidx, jkeep = jax.jit(lambda x, w: _ref_routing(x, {"router": w}, jcfg.moe,
+                                                        M.GROUP_CHUNK))(
+            jnp.asarray(x.numpy()), jnp.asarray(p["router"].numpy()))
+        np.testing.assert_array_equal(r.experts.numpy(), np.asarray(jidx))
+        np.testing.assert_array_equal((r.slot >= 0).numpy(), np.asarray(jkeep))
+        assert int((r.slot < 0).sum()) > 0
+
+
+def test_qwen3_shaped_prefill_then_decode_equal_the_reference():
+    """prefill + serve_step against the reference's jitted ``prefill`` +
+    ``serve_step`` at 1e-5 of max; the prefill drops pairs at capacity, a
+    decode step none."""
+    cfg, jcfg, tp, jp = _qwen3_pair()
+    toks = _tokens(cfg, 2, 24, 4)
+    n_prompt, cache_len = 16, 32
+    jprefill = jax.jit(JT.prefill, static_argnums=(1, 3))
+    jstep = jax.jit(JT.serve_step, static_argnums=(1,))
+    with torch.inference_mode():
+        x = torch.from_numpy(toks[:, :n_prompt])
+        logits, cache, pos = T.prefill(tp, cfg, {"tokens": x}, cache_len)
+        jlogits, jcache, _ = jprefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :n_prompt])},
+                                      cache_len)
+        _close(logits.numpy(), jlogits, QWEN3_TOL)
+        h = T.embed_inputs(tp, cfg, {"tokens": x})[0]
+        assert int(M.dropped_pairs(h, T._group(tp["layers"], 0)["l0"]["ffn"], cfg.moe)) > 0
+        for i in range(n_prompt, toks.shape[1]):
+            step = torch.from_numpy(toks[:, i:i + 1])
+            logits, cache = T.serve_step(tp, cfg, cache, step, i)
+            jlogits, jcache = jstep(jp, jcfg, jcache, jnp.asarray(toks[:, i:i + 1]),
+                                    jnp.asarray(i, jnp.int32))
+            _close(logits.numpy(), jlogits, QWEN3_TOL)
+            h = T.embed_inputs(tp, cfg, {"tokens": step})[0]
+            assert int(M.dropped_pairs(h, T._group(tp["layers"], 0)["l0"]["ffn"], cfg.moe,
+                                       group_chunk=1)) == 0
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_served_forward_routes_jamba_moe_as_prefill_and_serve_step(monkeypatch):
+    """``chip_smoke.served_forward`` on reduced jamba with its MoE (MoE
+    layers behind Mamba mixers and behind its attention layer): its logits
+    at the prompt's last position and at each served one against the
+    reference's own ``prefill`` + ``serve_step`` fed the same tokens, and
+    its prefill drops layer by layer equal to the port's prefill's."""
+    smoke = _chip_smoke()
+    cfg, jcfg, tp, jp = _f32_pair("jamba-v0.1-52b-moe")
+    assert any(d.ffn == "moe" and d.mixer == "mamba" for d in T.block_structure(cfg)[0])
+    toks = _tokens(cfg, 2, 24, 4)
+    n_prompt = 16
+    with torch.inference_mode():
+        x, drops = smoke.served_forward(tp, cfg, torch.from_numpy(toks), n_prompt)
+        got = T.logits_from_x(tp, cfg, x[:, n_prompt - 1:]).float().numpy()
+    jprefill = jax.jit(JT.prefill, static_argnums=(1, 3))
+    jstep = jax.jit(JT.serve_step, static_argnums=(1,))
+    jlogits, jcache, _ = jprefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :n_prompt])}, 32)
+    want = [np.asarray(jlogits, np.float32)]
+    for i in range(n_prompt, toks.shape[1]):
+        jlogits, jcache = jstep(jp, jcfg, jcache, jnp.asarray(toks[:, i:i + 1]),
+                                jnp.asarray(i, jnp.int32))
+        want.append(np.asarray(jlogits))
+    np.testing.assert_allclose(got, np.stack(want, 1), rtol=TOL, atol=TOL)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    assert len(drops["prefill"]) == len(drops["decode"]) == n_moe
+    assert sum(drops["prefill"]) > 0 and sum(drops["decode"]) == 0
+    counted = _counting_drops(monkeypatch)
+    with torch.inference_mode():
+        T.prefill(tp, cfg, {"tokens": torch.from_numpy(toks[:, :n_prompt])}, 32)
+    assert counted == drops["prefill"]
