@@ -6,8 +6,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments,
 no install: it puts ``src/`` on the path itself).  Phases:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. (Z1) build the five CUDA kernels from ``src/repro_torch/csrc``, one nvcc
-   each, all at once;
+2. (Z1) build the seven CUDA kernel libraries from ``src/repro_torch/csrc``
+   (the five forward kernels and the backwards of flash_attention and
+   rwkv6_scan), one nvcc each, all at once;
 3. hold each bottleneck kernel, on every tile of ``kernels/tiles.py``,
    against its plain PyTorch version on the card at the main path's shapes
    (full-width VGG16, batch 8), N = 1, two ragged N and the llama3.2-3b cut
@@ -61,7 +62,7 @@ no install: it puts ``src/`` on the path itself).  Phases:
     step's logits are held under Z4's rule against a forward that routes
     as the served run did (``served_forward``: the prompt in the prefill's
     groups, each served token a group of its own); (Z18b) the same in f32
-    at 14 layers; (Z18c) Z6's check for a depth-2 f32 copy, its prefill
+    at 14 layers; (Z18c) Z6's check for a one-layer f32 copy, its prefill
     dropping pairs;
 13b. (Z19) serve whisper-tiny whole (4 encoder and 4 decoder layers) in
     bf16 and f32 through ``ServingEngine`` on Z4's prompts (zero frames, as
@@ -72,11 +73,11 @@ no install: it puts ``src/`` on the path itself).  Phases:
     cross-attention), none a decode step; (Z20a) internvl2-76b at full
     width and 24 of its 80 layers in bf16, the same way with 256 N(0, 1)
     patches before the prompts in the hold; (Z20b) 8 layers in f32; (Z20c)
-    Z6's check for a depth-2 f32 copy;
+    Z6's check for a one-layer f32 copy;
 13c. (Z22a) serve qwen3-moe-235b-a22b (128 experts top-8, H 64 over K 4,
     n_heads * head_dim twice d_model) at full width and 8 of 94 layers in
     bf16 as Z18a serves deepseek, (Z22b) 4 layers in f32, (Z22c) Z6's check
-    for a depth-2 f32 copy; (Z21a) jamba-v0.1-52b with its MoE (behind
+    for a one-layer f32 copy; (Z21a) jamba-v0.1-52b with its MoE (behind
     Mamba mixers and its attention) at full width and 16 of 32 layers in
     bf16, (Z21b) one 8-layer period in f32, (Z21c) its first two f32 layers
     (a Mamba mixer with its dense FFN, then one with its MoE) one at a time
@@ -91,6 +92,26 @@ no install: it puts ``src/`` on the path itself).  Phases:
     over each request's prompt and served tokens under Z4's rule, and in f32
     against the request served alone at the f32 bar; one admit and one full
     tick profiled;
+13e. (Z2b) hold ``flash_attention_bwd`` (the backward of the autograd path)
+    against ``ref.flash_attention_bwd_ref`` on the kernel's own output and
+    against autograd through the plain forward, bf16 and f32, at llama3.2-3b's
+    training shape (B 1, S 4096), the llama prefill, ``window512_d64``,
+    whisper-tiny's encoder and cross-attention (Sq 448 and 2000 over 1500
+    frames), timed beside SDPA's backward; (Z5b) ``rwkv6_scan_bwd`` the same
+    way at Z3's prefill and rwkv6-1.6b's training shape (B 1, S 4096), from
+    a nonzero state with a nonzero final-state gradient (these run right
+    after Z3); (Z24a-c) train llama3.2-3b and rwkv6-1.6b whole in bf16 at
+    train_4k's sequence (batch 1) and whisper-tiny (batch 4, 448 tokens)
+    through ``make_train_step``, 6 steps on one ``token_batch``, the losses
+    finite and falling, every step's launches held to the code's count (each
+    kernel's forward twice a layer: the checkpointed group is recomputed in
+    the backward), step ms, tokens a second, init and step peak GB, one step
+    under ``device_breakdown``; (Z24d) the loss and every gradient leaf of
+    depth-2 f32 llama and rwkv (B 1, S 512) and whole f32 whisper on the card
+    against the CPU; (Z25) ``Study`` over llama3.2-3b and rwkv6-1.6b whole in
+    bf16 on the card (profile, candidates, simulate, suggest; the profile
+    launches each kernel's forward and backward once a layer), and 4-layer
+    f32 copies held to the same study on the CPU;
 14. (Z11) the paper's split-point search on phase 4's VGG16 (the same
     seed): Table I/II from ``core.stats``, held equal to the reference's
     (``VGG16_TOTALS_16``); the Grad-CAM CS curve over the 18 feature ops on
@@ -148,15 +169,18 @@ no install: it puts ``src/`` on the path itself).  Phases:
     Chrome trace's span names; then ``fit`` on a second study, its first
     step replayed on the CPU; each verb's host seconds and peak memory;
 21. print the kernels' launch counts with their errors, times and bounds as
-    one JSON line, then ``{"ok": true, "device": ...}``.
+    one JSON line (the two backward kernels with their training runs'
+    launches), then ``{"ok": true, "device": ...}``.
 
-Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18-Z23, Z11, Z12's training and its
+Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18-Z25, Z11, Z12's training and its
 deploy, Z13, Z14, each part of Z15, Z16, Z17 and its ``fit``) runs with the
 launch counts set to 0 just before it and read just after; a served run's
 prefill and decode are counted apart as well, and ``flash_attention``'s
 launches by route (``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32
-one).  Z11, Z12's training, Z13, Z16 and Z17's ``fit`` launch no kernel (a
-wrapper refuses an input that requires grad; the simulator runs the plain
+one; a training step's backward routes, ``bwd_bf16`` or ``bwd_f32``, and
+``rwkv6_scan``'s ``bwd``, apart).  Z11, Z12's training, Z13, Z16 and Z17's
+``fit`` launch no kernel (VGG16's layers are cuDNN and cuBLAS, and the codec
+wrappers refuse an input that requires grad; the simulator runs the plain
 f32 forward); Z14, Z15 and Z17 launch each codec kernel a number of times
 worked out from the code (Z15: from the rungs each request took; Z17: its
 calibrate at each AE cut, its two deploys' infers at each hop with an AE,
@@ -190,7 +214,8 @@ from repro_torch.configs import SERVED, get_config  # noqa: E402
 from repro_torch.core import bottleneck as B  # noqa: E402
 from repro_torch.core import stats  # noqa: E402
 from repro_torch.core.qos import rank_candidates  # noqa: E402
-from repro_torch.core.saliency import candidate_split_points, cumulative_saliency  # noqa: E402
+from repro_torch.core.saliency import (candidate_split_points, cumulative_saliency,  # noqa: E402
+                                       layer_saliency_maps)
 from repro_torch.core.bottleneck import latent_channels  # noqa: E402
 from repro_torch.core.scenarios import (PLATFORMS, HILPlatform, Scenario,  # noqa: E402
                                         scenario_times_and_payload)
@@ -205,9 +230,10 @@ from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models.mamba import mamba_seq  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layered import transformer_as_layered  # noqa: E402
-from repro_torch.data.synthetic import toy_image_iter, toy_images  # noqa: E402
+from repro_torch.data.synthetic import token_batch, toy_image_iter, toy_images  # noqa: E402
 from repro_torch.models.vgg import feature_index, vgg16  # noqa: E402
-from repro_torch.training.optimizer import adam_init, adam_update  # noqa: E402
+from repro_torch.training.optimizer import OptConfig, adam_init, adam_update  # noqa: E402
+from repro_torch.training.train import init_train_state, make_train_step  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.qos import QoSRequirements  # noqa: E402
 from repro_torch.fleet import (PCTL_RTOL, AdaptiveController, ControllerConfig,  # noqa: E402
@@ -321,6 +347,58 @@ MAMBA_SHAPES = [("jamba_prefill", 4, 2000, 8192, 16, False, False),
                 ("ragged333", 4, 333, 8192, 16, True, False),
                 ("jamba_decode", 4, 1, 8192, 16, True, False),
                 ("served_a", 4, 2000, 8192, 16, False, True)]
+# Z2b: flash_attention's backward (csrc/flash_attention_bwd.cu) at the
+# shapes training gives it: llama3.2-3b's train_4k step (B 1, S 4096), the
+# llama prefill row's shape, window512_d64, whisper-tiny's encoder and its
+# cross-attention at 448 text tokens over 1500 frames, and the cross-attention
+# at Sq > Sk: (label, B, Sq, Sk, H, K, D, causal, window, dtype)
+FLASH_BWD_SHAPES = [
+    (label + suffix, *shape, dtype)
+    for label, *shape in [("llama_train", 1, 4096, 4096, 24, 8, 128, True, None),
+                          ("llama_prefill", 4, 2000, 2000, 24, 8, 128, True, None),
+                          ("window512_d64", 4, 2000, 2000, 6, 6, 64, True, 512),
+                          ("whisper_enc", 4, 1500, 1500, 6, 6, 64, False, None),
+                          ("whisper_cross", 4, 448, 1500, 6, 6, 64, False, None),
+                          ("whisper_cross_sq2000", 4, 2000, 1500, 6, 6, 64, False, None)]
+    for suffix, dtype in (("", torch.bfloat16), ("_f32", torch.float32))]
+# each gradient against the plain backward and autograd through the plain
+# forward, relative to its max |g|: f32 sums in another order; in bf16 the
+# gradients are rounded to bf16 and the kernel's delta = rowsum(dO o) reads
+# its forward's output, whose softmax weights were rounded to bf16
+FLASH_BWD_BAR = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Z5b: rwkv6_scan's backward (csrc/rwkv6_scan_bwd.cu) at Z3's rwkv prefill
+# shape and at rwkv6-1.6b's train_4k step (B 1, S 4096, H 32, D 64), from a
+# nonzero start state with a nonzero final-state gradient, the train row at
+# the served model's decays: (label, B, S, H, D, served decays)
+RWKV_BWD_SHAPES = [("rwkv_prefill", 4, 1000, 32, 64, False),
+                   ("rwkv_train", 1, 4096, 32, 64, True)]
+RWKV_BWD_BAR = 1e-4
+# Z24: training whole on one card, bf16, OptConfig() (lr 3e-4, b1 0.9, b2
+# 0.95, clip 1.0, f32 moments, no master copy): TRAIN_STEPS steps on one
+# data.synthetic.token_batch (seed 0).  train_4k's sequence at batch 1 (its
+# global batch of 256 cut to one card's 1); whisper-tiny at batch 4 over 448
+# text tokens and its 1500 frames (numpy seed FRONT_SEED)
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-4
+TRAIN_RUNS = [("llama3.2-3b", 1, 4096), ("rwkv6-1.6b", 1, 4096), ("whisper-tiny", 4, 448)]
+# Z24d: the gradients on the card (kernels) against the CPU (plain
+# versions), f32, same weights and batch: (arch, layers or None for whole,
+# B, S); the loss within 1e-5 relative, every leaf within 1e-4 of its max
+# |g| (a key bias, whose gradient is 0 in exact arithmetic, at its wk's
+# scale) or, as Z4 holds logits, within ULP_FACTOR times the CPU gradient's
+# own response to one rounding at its input (the last bit of every
+# embedding entry flipped), whichever is larger
+GRAD_RUNS = [("llama3.2-3b", 2, 1, 512), ("rwkv6-1.6b", 2, 1, 512), ("whisper-tiny", None, 1, 448)]
+ZOO_LOSS_RTOL, ZOO_GRAD_RTOL = 1e-5, 1e-4
+# Z25: the Study facade over zoo models on the card, bf16 and whole, and f32
+# copies held to the same study on the CPU: the CS curve within CS_ATOL, the
+# candidate labels equal.  At depth 2 the min-max normalised curve is [1, 0]
+# whatever the maps, so the copies keep ZOO_STUDY_LAYERS layers.  Each
+# block's raw map (alpha-weighted, summed over channels of either sign) is
+# printed beside: rwkv's part from the CPU's by 2.6e-4 to 5.1e-4 of max on
+# the card's plain path alone, without a kernel (a diagnostic call, PR 32)
+ZOO_STUDIES = ("llama3.2-3b", "rwkv6-1.6b")
+ZOO_STUDY_LAYERS = 4
 # its bar, relative to max |plain| of y and of the final state: f32 in
 # another order (fused multiply-adds, the kernel's own sum over d_state in
 # two lanes' partials) and exp as ex2.approx of a pre-scaled argument
@@ -336,9 +414,8 @@ JAMBA_MOE_BF16_LAYERS, JAMBA_MOE_F32_LAYERS = 16, 8
 # Z22: qwen3-moe-235b-a22b (94 layers, every one MoE: 128 experts top-8;
 # H 64, K 4, head dim 128) at full width, cut in depth: 8 layers in bf16
 # (42.3 GB; at init the model, one stacked expert leaf of 12.9 GB and the f32
-# embedding of 2.5 GB), 4 in f32 (44.8 GB), and a depth-2 f32 copy against
-# the CPU (24.9 GB of f32 weights on the host, which held 100.7-101.8 GB
-# free on the card's machine)
+# embedding of 2.5 GB), 4 in f32 (44.8 GB), and a one-layer f32 copy against
+# the CPU (14.9 GB of f32 weights on the host)
 QWEN3 = "qwen3-moe-235b-a22b"
 QWEN3_BF16_LAYERS, QWEN3_F32_LAYERS = 8, 4
 # Z23: the continuous batcher (serving.continuous) on 4 slots, llama3.2-3b
@@ -354,6 +431,11 @@ BATCHER_MAX_NEW = (16, 4, 9, 16, 16, 7, 16, 5)
 # weights, 67.5 GB, and one stacked expert leaf, 20.7 GB, do not fit)
 DEEPSEEK = "deepseek-moe-16b"
 DEEPSEEK_F32_LAYERS = 14
+# the depth of Z18c's, Z20c's and Z22c's f32 copies against the CPU: one
+# layer each (every one of deepseek's and qwen3's is MoE), cut from 2 when
+# zoo training joined the script, whose CPU halves of these copies took 23,
+# 53 and 80 s of a 650 s run (PR 32)
+E2E_MOE_LAYERS = 1
 # Z19: whisper-tiny whole (4 encoder and 4 decoder layers) on Z4's prompts;
 # Z20: internvl2-76b at full width, Z4's prompts after its 256 patches, cut
 # in depth: 24 of 80 layers in bf16 (45.5 GB of weights; the model plus one
@@ -582,6 +664,19 @@ def device_ms(fn, reps: int = 10, replays: int = 5) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (replays * reps)
+
+
+def once_ms(fn) -> float:
+    """Time of one call after one warm-up, CUDA events around it: for the
+    plain versions, long loops of small launches."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 _FLUSH = []
@@ -1820,6 +1915,383 @@ def check_mamba(label, b, s, di, ds, nonzero, served_a, gen) -> dict:
     return e
 
 
+def grad_gaps(got, want, scales=None) -> list:
+    """max |got - want| of each gradient over its max |want| (or ``scales``);
+    where that is 0 (a parameter the loss does not read, such as an RMSNorm's
+    unused bias), max |got| itself."""
+    scales = scales or [float(w.float().abs().max()) for w in want]
+    return [float((g.float() - w.float()).abs().max()) / (sc or 1.0)
+            for g, w, sc in zip(got, want, scales)]
+
+
+def check_flash_bwd(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
+    """Z2b: ``flash_attention_bwd`` at one shape against the plain backward
+    (on the kernel's own forward output) and autograd through the plain
+    forward, on the card; the autograd route of the wrapper bit for bit the
+    direct call; timed beside SDPA's backward and its bound."""
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, sk, kh, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+    with torch.no_grad():
+        o = FA.flash_attention(q, k, v, causal=causal, window=window)
+    got = FA.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if not all(g.dtype == dtype and torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"flash backward at {label}: not finite or not {dtype}")
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    err_ref = grad_gaps(got, want)
+    abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    del want
+    live = [t.detach().requires_grad_() for t in (q, k, v)]
+    plain = torch.autograd.grad(ref.flash_attention_ref(*live, causal=causal, window=window),
+                                live, do)
+    err_plain = grad_gaps(got, plain)
+    del plain
+    bar = FLASH_BWD_BAR[dtype]
+    if max(err_ref + err_plain) > bar:
+        raise AssertionError(f"flash backward at {label}: dq, dk, dv off the plain backward by "
+                             f"{err_ref}, off autograd of the plain forward by {err_plain} of "
+                             f"their max (bar {bar})")
+    # the route a training step takes: the wrapper under autograd
+    reset_launches()
+    out = FA.flash_attention(*live, causal=causal, window=window)
+    via = torch.autograd.grad(out, live, do)
+    torch.cuda.synchronize()
+    counts = launch_counts()["flash_attention"]
+    if (not all(torch.equal(a, g) for a, g in zip(via, got))
+            or counts[FA.ROUTES[dtype]] != 1 or counts[FA.BWD_ROUTES[dtype]] != 1):
+        raise AssertionError(f"flash backward at {label}: the autograd route differs from the "
+                             f"direct call, or launched {counts}")
+    del via, out
+    # SDPA's backward: its forward and backward less its forward, the same mask
+    mask = None
+    if window is not None or (causal and sq != sk):
+        mask = ref.attention_mask(sq, sk, causal, window, "cuda")
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=causal and mask is None,
+                                              enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa()
+    pairs = live_pairs(sq, sk, causal, window)
+    e = {"shape": label, "B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
+         "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
+         "route": FA.BWD_ROUTES[dtype], "rel_err_vs_plain_bwd": err_ref,
+         "rel_err_vs_autograd": err_plain, "max_abs_err": abs_err, "live_pairs": pairs,
+         "ms": device_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                                        window=window), reps=3),
+         "plain_ms": once_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                                                 window=window)),
+         "library_ms": call_ms(sdpa_fwd_bwd) - call_ms(sdpa_fwd),
+         "forward_ms": device_ms(lambda: FA.flash_attention(q, k, v, causal=causal,
+                                                            window=window))}
+    # q, k, v, o, dO read once, dq, dk, dv written once; 10 D flops a live
+    # pair and head (S, dP, dV, dQ, dK)
+    nbytes = q.element_size() * (4 * b * sq * h * d + 4 * b * sk * kh * d)
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    e["bound_ms"], e["bound_by"] = bound_ms(nbytes, 10 * b * h * d * pairs, peak)
+    return e
+
+
+def check_rwkv_bwd(label, b, s, h, d, served_w, gen) -> dict:
+    """Z5b: ``rwkv6_scan_bwd`` at one shape, from a nonzero start state with
+    nonzero gradients of out and of the final state, against the plain
+    backward and autograd through the plain scan on the card."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (0.5 * randn(b, s, h, d) for _ in range(3))
+    if served_w:
+        w = torch.exp(-torch.exp(-4.0 + 0.5 * randn(b, s, h, d)))
+        u = 0.1 * randn(h, d)
+    else:
+        w = torch.exp(-torch.exp(randn(b, s, h, d) - 1.0))
+        u = 0.3 * randn(h, d)
+    st = 0.2 * randn(b, h, d, d)
+    dout, dst = randn(b, s, h, d), randn(b, h, d, d)
+    ins = (r, k, v, w, u, st)
+    got = RS.rwkv6_scan_bwd(*ins, dout, dst)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"rwkv backward at {label}: not finite")
+    want = ref.rwkv6_scan_bwd_ref(*ins, dout, dst)
+    err_ref = grad_gaps(got, want)
+    abs_err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+    del want
+    live = [t.detach().requires_grad_() for t in ins]
+    plain = torch.autograd.grad(ref.rwkv6_scan_ref(*live), live, (dout, dst))
+    err_plain = grad_gaps(got, plain)
+    del plain
+    if max(err_ref + err_plain) > RWKV_BWD_BAR:
+        raise AssertionError(f"rwkv backward at {label}: dr, dk, dv, dw, du, dstate off the "
+                             f"plain backward by {err_ref}, off autograd of the plain scan by "
+                             f"{err_plain} of their max (bar {RWKV_BWD_BAR})")
+    reset_launches()
+    out, final = RS.rwkv6_scan(*live)
+    via = torch.autograd.grad((out, final), live, (dout, dst))
+    torch.cuda.synchronize()
+    if (not all(torch.equal(a, g) for a, g in zip(via, got))
+            or launch_counts()["rwkv6_scan"] != {"chain": 1, "bwd": 1}):
+        raise AssertionError(f"rwkv backward at {label}: the autograd route differs from the "
+                             f"direct call, or launched {launch_counts()['rwkv6_scan']}")
+    del via, out, final, live
+    run = lambda: RS.rwkv6_scan_bwd(*ins, dout, dst)  # noqa: E731
+    e = {"shape": label, "B": b, "S": s, "H": h, "D": d, "served_w": served_w,
+         "rel_err_vs_plain_bwd": err_ref, "rel_err_vs_autograd": err_plain,
+         "max_abs_err": abs_err, "ms": device_ms(run, reps=3), "call_ms": call_ms(run),
+         "plain_ms": once_ms(lambda: ref.rwkv6_scan_bwd_ref(*ins, dout, dst)),
+         "library_ms": None,
+         "forward_ms": device_ms(lambda: RS.rwkv6_scan(r, k, v, w, u, st))}
+    e["ms_per_step"] = e["ms"] / s
+    # r, k, v, w, dout read and dr, dk, dv, dw written; u, du and three
+    # states.  Operations a step and head: 14 a state entry (the state
+    # recomputed: k v, w S and the sum; dr, dk, dv, dw: a product and a sum
+    # each; G: w G, r dout and the sum) and 10 a row (v . dout, the bonus
+    # terms of dr, dk and dv, du)
+    e["bound_ms"], e["bound_by"] = bound_ms(4 * (9 * b * s * h * d + 3 * b * h * d * d + 2 * h * d),
+                                            b * s * h * (14 * d * d + 10 * d))
+    return e
+
+
+def train_batch(cfg, b, s, device) -> dict:
+    """``data.synthetic.token_batch`` (seed 0) of ``cfg``'s vocab, with the
+    stub frontend's N(0, 1) frames or patches (``front_inputs``)."""
+    batch = {k: torch.from_numpy(a).to(device)
+             for k, a in token_batch(b, s, cfg.vocab, seed=0).items()}
+    return {**batch, **front_inputs(cfg, b, device)}
+
+
+def train_zoo(arch, b, s) -> dict:
+    """Z24a-c: ``arch`` whole in bf16 trained TRAIN_STEPS steps on one batch
+    through ``make_train_step`` (AdamW in place, each group recomputed in
+    its backward), every step's launches counted and held to the counts
+    worked out from the code, the losses finite and falling; step times,
+    tokens a second and peak memory; one step under ``device_breakdown``."""
+    cfg = served_cfg(arch)
+    oc = OptConfig(lr=TRAIN_LR)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, state = init_train_state(0, cfg, oc, device="cuda")
+    torch.cuda.synchronize()
+    row = {"arch": arch, "B": b, "S": s, "dtype": cfg.dtype, "lr": TRAIN_LR,
+           "init_s": time.perf_counter() - t0,
+           "init_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "state_gb": sum(t.numel() * t.element_size()
+                           for t in tree_leaves((params, state))) / 1e9}
+    batch = train_batch(cfg, b, s, "cuda")
+    step = make_train_step(cfg, oc)
+    per_fwd = per_token_launches(cfg)[0]
+    fwd_route = FA.ROUTES[cfg.tdtype]
+    want = {"flash_attention": {fwd_route: 2 * per_fwd["flash_attention"],
+                                FA.BWD_ROUTES[cfg.tdtype]: per_fwd["flash_attention"]},
+            "rwkv6_scan": {"chain": 2 * per_fwd["rwkv6_scan"], "bwd": per_fwd["rwkv6_scan"]}}
+    losses, times, peaks, counts = [], [], [], None
+    total = {k: dict.fromkeys(FA.launches if k == "flash_attention" else RS.launches, 0)
+             for k in want}
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        loss = float(metrics["loss"])          # synchronises
+        times.append(time.perf_counter() - t0)
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 1e9)
+        counts = launch_counts()
+        losses.append(loss)
+        for kernel in total:
+            for r, n in counts[kernel].items():
+                total[kernel][r] += n
+        for kernel, routes in want.items():
+            got = {r: n for r, n in counts[kernel].items() if n}
+            need = {r: n for r, n in routes.items() if n}
+            if got != need:
+                raise AssertionError(f"Z24 {arch} step {i}: {kernel} launched {counts[kernel]}, "
+                                     f"want {need}")
+        if any(sum(c.values()) for k, c in counts.items() if k not in want):
+            raise AssertionError(f"Z24 {arch} step {i}: launched {counts}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"Z24 {arch}: losses {losses} not finite and falling")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    row.update(losses=losses, step_s=times, step_ms=1e3 * steady,
+               tokens_per_s=b * s / steady, step_peak_gb=max(peaks),
+               launches_per_step={k: counts[k] for k in want}, launches=total,
+               breakdown=device_breakdown(lambda: step(params, state, batch), top=8))
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def key_bias_scales(paths, want) -> list:
+    """Each gradient leaf's scale: its max |g|, and for a key bias (whose
+    gradient is 0 in exact arithmetic: softmax ignores a shift common to a
+    query's scores) that of its wk."""
+    by_path = dict(zip(paths, want))
+    out = []
+    for path, w in zip(paths, want):
+        top = float(w.float().abs().max())
+        if path[-1] == "bk":
+            top = max(top, float(by_path[path[:-1] + ("wk",)].float().abs().max()))
+        out.append(top)
+    return out
+
+
+def leaf_paths(tree, path=()) -> list:
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in leaf_paths(v, path + (k,))]
+    return [path]
+
+
+def loss_and_grads(params, cfg, batch) -> tuple:
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(live)
+    loss, _ = T.loss_fn(tree_map(lambda _: next(it), params), cfg, batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                                  for p, g in zip(live, grads)]
+
+
+def grads_vs_cpu(arch, n_layers, b, s) -> dict:
+    """Z24d: the loss and every gradient of an f32 copy of ``arch`` (cut to
+    ``n_layers``, or whole) through the kernels on the card against the
+    plain versions on the CPU, same weights and batch; each leaf's bar the
+    larger of ZOO_GRAD_RTOL and ULP_FACTOR times its CPU response to a
+    one-ulp flip of the embedding."""
+    changes = {"dtype": "float32"} if n_layers is None else {"dtype": "float32",
+                                                              "n_layers": n_layers}
+    cfg = served_cfg(arch, **changes)
+    params = T.init_params(0, cfg, device="cuda")
+    batch = train_batch(cfg, b, s, "cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launch_counts()
+    per_fwd = per_token_launches(cfg)[0]
+    want = {"flash_attention": {"simt_f32": 2 * per_fwd["flash_attention"],
+                                "bwd_f32": per_fwd["flash_attention"]},
+            "rwkv6_scan": {"chain": 2 * per_fwd["rwkv6_scan"], "bwd": per_fwd["rwkv6_scan"]}}
+    for kernel, routes in want.items():
+        if {r: n for r, n in counts[kernel].items() if n} != {r: n for r, n in routes.items() if n}:
+            raise AssertionError(f"Z24d {arch}: {kernel} launched {counts[kernel]}, want {routes}")
+    grads = [g.cpu() for g in grads]
+    params_cpu, batch_cpu = to_cpu(params), to_cpu(batch)
+    del params, batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want_loss, want_grads = loss_and_grads(params_cpu, cfg, batch_cpu)
+    cpu_s = time.perf_counter() - t0
+    paths = leaf_paths(params_cpu)
+    scales = key_bias_scales(paths, want_grads)
+    gaps = grad_gaps(grads, want_grads, scales)
+    flipped = dict(params_cpu, embed=ulp_flip(params_cpu["embed"]))
+    flip_loss, flip_grads = loss_and_grads(flipped, cfg, batch_cpu)
+    response = grad_gaps(flip_grads, want_grads, scales)
+    bars = [max(ZOO_GRAD_RTOL, ULP_FACTOR * r) for r in response]
+    loss_gap = abs(loss - want_loss) / abs(want_loss)
+    loss_bar = max(ZOO_LOSS_RTOL, ULP_FACTOR * abs(flip_loss - want_loss) / abs(want_loss))
+    worst = max(range(len(gaps)), key=lambda i: gaps[i] / bars[i])
+    row = {"arch": arch, "n_layers": cfg.n_layers, "B": b, "S": s, "loss": loss,
+           "cpu_loss": want_loss, "loss_rel_err": loss_gap, "loss_bar": loss_bar,
+           "max_grad_rel_err": max(gaps), "worst_leaf": "/".join(map(str, paths[worst])),
+           "worst_gap": gaps[worst], "worst_bar": bars[worst],
+           "worst_ulp_response": response[worst], "max_ulp_response": max(response),
+           "n_leaves": len(gaps), "card_s": card_s, "cpu_s": cpu_s,
+           "launches": {k: counts[k] for k in want}}
+    if loss_gap > loss_bar or gaps[worst] > bars[worst]:
+        raise AssertionError(f"Z24d {arch}: {row}")
+    return row
+
+
+def zoo_study(arch) -> dict:
+    """Z25: ``Study(arch, reduce=False)`` whole in bf16 on the card through
+    profile -> candidates -> simulate -> suggest, each verb timed and its
+    launches counted (profile: one forward and one backward over the view,
+    each kernel once a layer); then an f32 copy cut to ZOO_STUDY_LAYERS on
+    the card against the same study on the CPU with the same weights."""
+    out, verbs = {"arch": arch}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        verbs[name] = {"s": time.perf_counter() - t0,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": {k: {r: n for r, n in c.items() if n}
+                                    for k, c in launch_counts().items() if sum(c.values())}}
+        return result
+
+    study = timed("Study", lambda: Study(arch, reduce=False, device="cuda"))
+    cfg = study.cfg
+    timed("profile", study.profile)
+    per_fwd = per_token_launches(cfg)[0]
+    kernel = "rwkv6_scan" if cfg.family == "ssm" else "flash_attention"
+    n = per_fwd[kernel]
+    want = ({"chain": n, "bwd": n} if kernel == "rwkv6_scan"
+            else {FA.ROUTES[cfg.tdtype]: n, FA.BWD_ROUTES[cfg.tdtype]: n})
+    if verbs["profile"]["launches"] != {kernel: want}:
+        raise AssertionError(f"Z25 {arch} profile launched {verbs['profile']['launches']}, "
+                             f"want {kernel} {want}")
+    if not np.isfinite(study.cs_curve).all():
+        raise AssertionError(f"Z25 {arch}: CS curve {study.cs_curve}")
+    timed("candidates", study.candidates)
+    timed("simulate", study.simulate)
+    best = timed("suggest", lambda: study.suggest(QoSRequirements(**STUDY_LINK_QOS)))
+    # simulate prices each candidate: the view's Table I once (cached on the
+    # model after), and one more forward for each SC candidate's stages; no
+    # verb but profile runs a backward
+    n_sc = sum(c.kind == "SC" for c in study.candidate_list)
+    fwd_route = "chain" if kernel == "rwkv6_scan" else FA.ROUTES[cfg.tdtype]
+    if (verbs["simulate"]["launches"] != {kernel: {fwd_route: n * (1 + n_sc)}}
+            or verbs["candidates"]["launches"] or verbs["suggest"]["launches"]):
+        raise AssertionError(f"Z25 {arch}: launches {verbs}, want simulate's "
+                             f"{n * (1 + n_sc)} ({n_sc} SC candidates)")
+    out.update(cs_curve=[float(x) for x in study.cs_curve],
+               candidates=[(c.label, c.accuracy_proxy) for c in study.candidate_list],
+               suggested=None if best is None else best.candidate.label, verbs=verbs)
+    del study
+    torch.cuda.empty_cache()
+    # the f32 copy, card against CPU: the curve, each block's raw map, labels
+    cfg2 = served_cfg(arch, n_layers=ZOO_STUDY_LAYERS, dtype="float32")
+    backbone = T.init_params(0, cfg2, device="cuda")
+    card = Study(cfg2, reduce=False, params=backbone, device="cuda").profile().candidates()
+    cpu = Study(cfg2, reduce=False, params=to_cpu(backbone), device="cpu").profile().candidates()
+    gap = float(np.abs(card.cs_curve - cpu.cs_curve).max() / np.abs(cpu.cs_curve).max())
+    rng = np.random.default_rng(0)              # the studies' own sample (seed 0)
+    toks = rng.integers(0, cfg2.vocab, (2, 32)).astype(np.int32)
+    labels_np = rng.integers(0, cfg2.vocab, (2, 32)).astype(np.int32)
+    maps = {}
+    for dev, st in (("cuda", card), ("cpu", cpu)):
+        maps[dev] = layer_saliency_maps(st.model, st.params,
+                                        {"tokens": torch.from_numpy(toks).to(dev)},
+                                        torch.from_numpy(labels_np).to(dev))
+    labels = ([c.label for c in card.candidate_list], [c.label for c in cpu.candidate_list])
+    out["f32_copy"] = {"n_layers": ZOO_STUDY_LAYERS, "cs_rel_err": gap,
+                       "cs_curve": [float(x) for x in cpu.cs_curve],
+                       "map_rel_err": grad_gaps([m.cpu() for m in maps["cuda"]], maps["cpu"]),
+                       "labels": labels[0],
+                       "proxies": [c.accuracy_proxy for c in cpu.candidate_list]}
+    if gap > CS_ATOL or labels[0] != labels[1]:
+        raise AssertionError(f"Z25 {arch} f32 copy: CS off the CPU by {gap} of max (bar "
+                             f"{CS_ATOL}), labels {labels}")
+    del card, cpu, backbone, maps
+    torch.cuda.empty_cache()
+    return out
+
+
 def padded(prompts) -> np.ndarray:
     """Left-padded with token 0, as ``ServingEngine.run`` pads."""
     toks = np.zeros((len(prompts), max(len(p) for p in prompts)), np.int32)
@@ -1841,7 +2313,8 @@ def top2_margin(logits: torch.Tensor) -> torch.Tensor:
 
 
 # the zoo kernels' device function names, as the profiler reports them
-ZOO_KERNEL_NAMES = {"flash_attention": "flash_fwd", "rwkv6_scan": "wkv6",
+ZOO_KERNEL_NAMES = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd",
+                    "rwkv6_scan": "wkv6", "rwkv6_scan_bwd": "wkv6_bwd",
                     "mamba_scan": "selective_scan"}
 
 
@@ -1869,8 +2342,12 @@ def device_breakdown(fn, top=6) -> dict:
         by_name[name] = by_name.get(name, 0.0) + (hi - lo)
     total = sum(by_name.values())
     rows = sorted(by_name.items(), key=lambda r: -r[1])[:top]
-    zoo = {k: sum(us for name, us in by_name.items() if part in name)
-           for k, part in ZOO_KERNEL_NAMES.items()}
+    # each kernel name to the longest part it holds ("wkv6_bwd" before "wkv6")
+    zoo = dict.fromkeys(ZOO_KERNEL_NAMES, 0.0)
+    for name, us in by_name.items():
+        hits = [k for k, part in ZOO_KERNEL_NAMES.items() if part in name]
+        if hits:
+            zoo[max(hits, key=lambda k: len(ZOO_KERNEL_NAMES[k]))] += us
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "busy_share": busy / wall_us,
             "n_kernel_names": len(by_name),
             "top": [{"kernel": k[:80], "ms": us / 1e3, "share": us / total} for k, us in rows],
@@ -1908,7 +2385,7 @@ def check_launches(what, counts, want) -> None:
 
 def check_flash_route(what, counts, dtype, n) -> dict:
     """``flash_attention`` launched ``n`` times, all on ``dtype``'s route."""
-    want = {route: 0 for route in FA.ROUTES.values()}
+    want = {route: 0 for route in FA.launches}
     want[FA.ROUTES[getattr(torch, dtype)]] = n
     if counts["flash_attention"] != want:
         raise AssertionError(f"{what}: flash_attention launches {counts['flash_attention']}, "
@@ -2480,7 +2957,8 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "warpgroup",
                                        "wgmma")):
                 print(f"  {name}: {line.strip()}")
-        if name.startswith("bottleneck_") or name in ("mamba_scan", "rwkv6_scan"):
+        if name.startswith("bottleneck_") or name in ("mamba_scan", "rwkv6_scan",
+                                                      "rwkv6_scan_bwd"):
             check_ptxas(name, log)
 
     # phase 3
@@ -2524,6 +3002,19 @@ def main() -> int:
         rwkv_rows.append(check_rwkv(label, *shape, gen))
         print("rwkv6_scan", json.dumps(rwkv_rows[-1]), flush=True)
         torch.cuda.empty_cache()
+    # Z2b, Z5b: the backward kernels against their plain versions
+    t0 = time.perf_counter()
+    flash_bwd_rows = []
+    for label, *shape in FLASH_BWD_SHAPES:
+        flash_bwd_rows.append(check_flash_bwd(label, *shape, gen))
+        print("Z2b flash_attention_bwd", json.dumps(flash_bwd_rows[-1]), flush=True)
+        torch.cuda.empty_cache()
+    rwkv_bwd_rows = []
+    for label, *shape in RWKV_BWD_SHAPES:
+        rwkv_bwd_rows.append(check_rwkv_bwd(label, *shape, gen))
+        print("Z5b rwkv6_scan_bwd", json.dumps(rwkv_bwd_rows[-1]), flush=True)
+        torch.cuda.empty_cache()
+    print(f"Z2b, Z5b took {time.perf_counter() - t0:.1f} s", flush=True)
     # Z7
     mamba_rows = []
     for label, *shape in MAMBA_SHAPES:
@@ -2550,7 +3041,8 @@ def main() -> int:
     e2e.append(e2e_check(JAMBA, n_layers=len(T.block_structure(served_cfg(JAMBA))[0])))
     print("end to end", json.dumps(e2e), flush=True)
     # Z18: deepseek-moe-16b, its MoE at the served capacity factor: (a) bf16
-    # at full width and depth, (b) f32 cut in depth, (c) Z6's check at depth 2
+    # at full width and depth, (b) f32 cut in depth, (c) Z6's check at depth
+    # E2E_MOE_LAYERS
     deep = serve_zoo(DEEPSEEK, LLAMA_PROMPTS)
     print(f"Z18a served {DEEPSEEK}", json.dumps(deep), flush=True)
     print(f"Z18a took {deep['phase_s']:.1f} s", flush=True)
@@ -2558,7 +3050,7 @@ def main() -> int:
     print(f"Z18b served {DEEPSEEK} float32", json.dumps(deep32), flush=True)
     print(f"Z18b took {deep32['phase_s']:.1f} s", flush=True)
     t0 = time.perf_counter()
-    deep_e2e = e2e_check(DEEPSEEK)
+    deep_e2e = e2e_check(DEEPSEEK, n_layers=E2E_MOE_LAYERS)
     print(f"Z18c end to end {DEEPSEEK}", json.dumps(deep_e2e), flush=True)
     print(f"Z18c took {time.perf_counter() - t0:.1f} s", flush=True)
     # Z19: whisper-tiny whole, bf16 and f32, and its f32 copy against the
@@ -2577,17 +3069,17 @@ def main() -> int:
     internvl["float32"] = serve_zoo(INTERNVL, LLAMA_PROMPTS, dtype="float32",
                                     n_layers=INTERNVL_F32_LAYERS)
     print(f"Z20b served {INTERNVL} float32", json.dumps(internvl["float32"]), flush=True)
-    internvl_e2e = e2e_check(INTERNVL)
+    internvl_e2e = e2e_check(INTERNVL, n_layers=E2E_MOE_LAYERS)
     print(f"Z20c end to end {INTERNVL}", json.dumps(internvl_e2e), flush=True)
     print(f"Z20 took {time.perf_counter() - t0:.1f} s", flush=True)
     # Z22: qwen3-moe-235b-a22b at full width, cut in depth: (a) bf16, (b)
-    # f32, (c) Z6's check at depth 2
+    # f32, (c) Z6's check at depth E2E_MOE_LAYERS
     t0 = time.perf_counter()
     qwen3 = {"bfloat16": serve_zoo(QWEN3, LLAMA_PROMPTS, n_layers=QWEN3_BF16_LAYERS)}
     print(f"Z22a served {QWEN3}", json.dumps(qwen3["bfloat16"]), flush=True)
     qwen3["float32"] = serve_zoo(QWEN3, LLAMA_PROMPTS, dtype="float32", n_layers=QWEN3_F32_LAYERS)
     print(f"Z22b served {QWEN3} float32", json.dumps(qwen3["float32"]), flush=True)
-    qwen3_e2e = e2e_check(QWEN3)
+    qwen3_e2e = e2e_check(QWEN3, n_layers=E2E_MOE_LAYERS)
     print(f"Z22c end to end {QWEN3}", json.dumps(qwen3_e2e), flush=True)
     print(f"Z22 took {time.perf_counter() - t0:.1f} s", flush=True)
     # Z21: jamba-v0.1-52b with its MoE at full width, cut in depth: (a) two
@@ -2613,6 +3105,24 @@ def main() -> int:
             batched[f"{arch} {dtype}"] = row = batcher_run(arch, prompts, dtype)
             print(f"Z23 batcher {arch} {dtype}", json.dumps(row), flush=True)
     print(f"Z23 took {time.perf_counter() - t0:.1f} s", flush=True)
+    # Z24: llama3.2-3b, rwkv6-1.6b and whisper-tiny trained whole in bf16;
+    # Z24d: f32 copies' gradients on the card against the CPU; Z25: the Study
+    # facade over zoo models on the card
+    trained = {}
+    for arch, b, s in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        trained[arch] = train_zoo(arch, b, s)
+        print(f"Z24 trained {arch}", json.dumps(trained[arch]), flush=True)
+        print(f"Z24 {arch} took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    grad_rows = [grads_vs_cpu(*run) for run in GRAD_RUNS]
+    print("Z24d gradients against the CPU", json.dumps(grad_rows), flush=True)
+    print(f"Z24d took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    studies = {arch: zoo_study(arch) for arch in ZOO_STUDIES}
+    for arch, row in studies.items():
+        print(f"Z25 study {arch}", json.dumps(row), flush=True)
+    print(f"Z25 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Z11, Z12: the split-point search, bottleneck training and the deploy
     # of the trained AEs, on phase 4's VGG16 (the same seed), last so that
@@ -2663,6 +3173,7 @@ def main() -> int:
     print(f"Z17 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the kernels line: launches from each kernel's main path
+    counts_keys = list(launch_counts())
     paths = {"bottleneck_compress": ("vgg16 phases 4-5", vgg_counts),
              "bottleneck_decompress": ("vgg16 phases 4-5", vgg_counts),
              "flash_attention": ("Z4 llama3.2-3b ServingEngine.run", llama["launches"]),
@@ -2683,20 +3194,24 @@ def main() -> int:
             f"Z18a {DEEPSEEK}": deep["launches"],
             f"Z18a {DEEPSEEK} prefill": deep["prefill_launches"],
             f"Z18b {DEEPSEEK} float32 depth {DEEPSEEK_F32_LAYERS}": deep32["launches"],
-            f"Z18c {DEEPSEEK} depth 2": deep_e2e["launches"],
+            f"Z18c {DEEPSEEK} depth {deep_e2e['n_layers']}": deep_e2e["launches"],
             **{f"Z19 {WHISPER} {dt}": r["launches"] for dt, r in whisper.items()},
             **{f"Z19 {WHISPER} {dt} prefill": r["prefill_launches"] for dt, r in whisper.items()},
             f"Z19 {WHISPER} end to end": whisper_e2e["launches"],
             **{f"Z20 {INTERNVL} {dt} depth {r['n_layers']}": r["launches"]
                for dt, r in internvl.items()},
-            f"Z20c {INTERNVL} depth 2": internvl_e2e["launches"],
+            f"Z20c {INTERNVL} depth {internvl_e2e['n_layers']}": internvl_e2e["launches"],
             **{f"Z22 {QWEN3} {dt} depth {r['n_layers']}": r["launches"] for dt, r in qwen3.items()},
             f"Z22a {QWEN3} prefill": qwen3["bfloat16"]["prefill_launches"],
-            f"Z22c {QWEN3} depth 2": qwen3_e2e["launches"],
+            f"Z22c {QWEN3} depth {qwen3_e2e['n_layers']}": qwen3_e2e["launches"],
             **{f"Z21 {JAMBA} with its MoE {dt} depth {r['n_layers']}": r["launches"]
                for dt, r in jamba_moe.items()},
             **{f"Z21c {JAMBA} {row['layer']}": row["launches"] for row in jamba_layers["layers"]},
-            **{f"Z23 {key} batcher": r["launches"] for key, r in batched.items()}}
+            **{f"Z23 {key} batcher": r["launches"] for key, r in batched.items()},
+            **{f"Z24 {arch} training": {k: r["launches"].get(k, {}) for k in counts_keys}
+               for arch, r in trained.items()},
+            **{f"Z25 {arch} profile": {k: row["verbs"]["profile"]["launches"].get(k, {})
+                                       for k in counts_keys} for arch, row in studies.items()}}
 
     def entry(name, rows, replaces, headline):
         head = next(e for e in rows if e["shape"] == headline)
@@ -2705,6 +3220,22 @@ def main() -> int:
                 "replaces": replaces, "launches": sum(counts[name].values()),
                 "launches_on": path, "launches_by": counts[name],
                 "launches_elsewhere": {k: sum(c[name].values()) for k, c in also.items()},
+                "max_abs_err": max(e["max_abs_err"] for e in rows),
+                "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+                "at": headline, "shapes": rows}
+
+    def bwd_entry(name, kernel, rows, headline, run, fwd_replaces):
+        head = next(e for e in rows if e["shape"] == headline)
+        counts = trained[run]["launches"][kernel]
+        by = {r: n for r, n in counts.items() if r.startswith("bwd") or r == "bwd"}
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": f"{fwd_replaces} (its backward: the TPU kernel has none)",
+                "launches": sum(by.values()), "launches_on": f"Z24 {run} training, "
+                f"{TRAIN_STEPS} steps", "launches_by": by,
+                "launches_elsewhere": {f"Z24d {e['arch']}": sum(
+                    n for r, n in e["launches"][kernel].items() if r.startswith("bwd"))
+                    for e in grad_rows},
                 "max_abs_err": max(e["max_abs_err"] for e in rows),
                 "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -2720,6 +3251,10 @@ def main() -> int:
               "llama_prefill"),
         entry("rwkv6_scan", rwkv_rows, "src/repro/kernels/rwkv6_scan.py:56", "rwkv_prefill"),
         entry("mamba_scan", mamba_rows, "src/repro/kernels/mamba_scan.py:55", "jamba_prefill"),
+        bwd_entry("flash_attention_bwd", "flash_attention", flash_bwd_rows, "llama_train",
+                  "llama3.2-3b", "src/repro/kernels/flash_attention.py:86"),
+        bwd_entry("rwkv6_scan_bwd", "rwkv6_scan", rwkv_bwd_rows, "rwkv_train", "rwkv6-1.6b",
+                  "src/repro/kernels/rwkv6_scan.py:56"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

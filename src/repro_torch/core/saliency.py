@@ -16,9 +16,11 @@ Generalized Grad-CAM over a :class:`LayeredModel`:
 
 Candidate split points = plateau-tolerant local maxima of CS restricted to
 legal cut points.  The backward pass goes through PyTorch's own ops (cuDNN
-convolutions, ``addmm``); no kernel of the port is on it, and the kernel
-wrappers refuse inputs that require grad on the card.  The parameters
-should not require grad, or the pass also computes their gradients.
+convolutions, ``addmm``) and, over a zoo view on the card, through the
+backward kernels of ``flash_attention`` and ``rwkv6_scan`` (a Mamba
+layer's ``mamba_scan`` has none yet and raises there: ROADMAP A17c).  The
+parameters should not require grad, or the pass also computes their
+gradients.
 """
 from __future__ import annotations
 

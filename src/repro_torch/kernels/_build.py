@@ -22,8 +22,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("bottleneck_compress", "bottleneck_decompress", "flash_attention", "mamba_scan",
-           "rwkv6_scan")
+KERNELS = ("bottleneck_compress", "bottleneck_decompress", "flash_attention",
+           "flash_attention_bwd", "mamba_scan", "rwkv6_scan", "rwkv6_scan_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -100,11 +100,16 @@ def check(lib, code: int, what: str) -> None:
                            f"{lib.kernel_error_string(abs(code)).decode()}")
 
 
-def refuse_grad(what: str, *tensors) -> None:
+# why the codec kernels have no backward
+CODEC_NO_GRAD = "the codec is not differentiated: a bottleneck trains on the f32 latent"
+
+
+def refuse_grad(what: str, why: str, *tensors) -> None:
     """Raise where grad mode is on and an input requires grad.  A kernel
-    has no backward and returns a fresh tensor with no ``grad_fn``, so a
-    gradient through it would come back as zero, with no error."""
+    with no backward returns a fresh tensor with no ``grad_fn``, so a
+    gradient through it would come back as zero, with no error.  ``why``
+    says why the kernel has none."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{what}: an input requires grad, and the CUDA kernel has no "
-                           "backward (backward kernels: ROADMAP A17b); run it under "
-                           "torch.no_grad(), or on the CPU, whose plain version differentiates")
+                           f"backward ({why}); run it under torch.no_grad(), or on the CPU, "
+                           "whose plain version differentiates")

@@ -62,7 +62,7 @@ def bottleneck_compress(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         return bottleneck_compress_ref(f, w, b)
     if f.device.type != "cuda":
         raise ValueError(f"bottleneck_compress runs on cpu or cuda, not {f.device}")
-    _build.refuse_grad("bottleneck_compress", f, w, b)
+    _build.refuse_grad("bottleneck_compress", _build.CODEC_NO_GRAD, f, w, b)
     n, c = f.shape
     l = w.shape[1]
     q = torch.empty((n, l), dtype=torch.int8, device=f.device)

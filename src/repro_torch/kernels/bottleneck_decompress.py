@@ -67,7 +67,7 @@ def bottleneck_decompress(q: torch.Tensor, s: torch.Tensor, w: torch.Tensor,
         return bottleneck_decode_ref(q, s, w, b)
     if q.device.type != "cuda":
         raise ValueError(f"bottleneck_decompress runs on cpu or cuda, not {q.device}")
-    _build.refuse_grad("bottleneck_decompress", q, s, w, b)
+    _build.refuse_grad("bottleneck_decompress", _build.CODEC_NO_GRAD, q, s, w, b)
     n, l = q.shape
     c = w.shape[1]
     out = torch.empty((n, c), dtype=torch.float32, device=q.device)

@@ -21,6 +21,15 @@ sit at the last Sq of Sk key positions, and the ragged edge is masked.
 Sq > Sk (a cross-attention over fewer keys than queries) only without
 causal or window masks: under either, a row could see no key, which the
 TPU kernel writes as 0 and a plain softmax as the mean of v.
+
+The backward (``csrc/flash_attention_bwd.cu``, a library of its own; no
+TPU kernel has one) runs where grad mode is on and an input requires grad:
+the forward then goes through :class:`_Attention`, which saves q, k, v and
+the output, and its backward launches :func:`flash_attention_bwd`, the
+gradient of softmax attention with the weights in f32 (for bf16 inputs too,
+whose forward rounds them to bf16 before P.V), on the CUDA cores in f32,
+FlashAttention-2's three passes (row statistics, dK and dV a key tile, dQ
+a query tile).  Bound by 10 * B * H * D * (live pairs) operations.
 """
 from __future__ import annotations
 
@@ -31,21 +40,26 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import check_lengths, flash_attention_ref
+from repro_torch.kernels.ref import check_lengths, flash_attention_bwd_ref, flash_attention_ref
 
-# launches of the CUDA kernel (a CPU call launches nothing)
-launches = {"wgmma_bf16": 0, "simt_f32": 0}
+# launches of the CUDA kernels, forward by route and backward by dtype (a
+# backward call runs its three kernels); a CPU call launches nothing
+launches = {"wgmma_bf16": 0, "simt_f32": 0, "bwd_bf16": 0, "bwd_f32": 0}
 
 # the head dims the TPU kernel names: 64 (whisper-tiny) and 128 (the dense
 # and VLM configurations), in float32 or bfloat16
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "simt_f32", torch.bfloat16: "wgmma_bf16"}
+BWD_ROUTES = {torch.float32: "bwd_f32", torch.bfloat16: "bwd_bf16"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _P], _I),
+}
+_BWD_SIGNATURES = {
+    "flash_attention_bwd": ([_P] * 10 + [_I] * 9 + [ctypes.c_float, _P], _I),
 }
 
 
@@ -72,32 +86,25 @@ def _check_inputs(q, k, v, causal, window) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0, and Sq <= Sk
-    unless neither mask is on.  Returns (B, Sq, H, D) in q's dtype; scores,
-    softmax and sums are f32.
-
-    A CPU tensor goes to :func:`flash_attention_ref`; a CUDA tensor launches
-    its dtype's kernel on the current stream (``ROUTES``), or raises (also
-    where grad mode is on and an input requires grad: the kernel has no
-    backward).
-    """
-    _check_inputs(q, k, v, causal, window)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+def _check_card(q, k, v) -> None:
+    """What the kernels take beyond :func:`_check_inputs`: a CUDA tensor,
+    head dims ``HEAD_DIMS``, and for the bf16 forward's TMA loads q, k and
+    v on 16-byte boundaries."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    _build.refuse_grad("flash_attention", q, k, v)
-    b, sq, h, d = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {q.shape[3]}")
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must start on a 16-byte boundary for the TMA "
                                  f"loads; it starts at {t.data_ptr():#x}")
+
+
+def _forward(q, k, v, causal, window) -> torch.Tensor:
+    """Launch the forward kernel of q's dtype on the current stream."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -110,3 +117,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(lib, code, "flash_attention")
     launches[ROUTES[q.dtype]] += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None) -> tuple:
+    """(dq, dk, dv) of softmax attention, in the inputs' dtype, given the
+    forward's output ``o`` and its gradient ``do`` (both (B, Sq, H, D),
+    contiguous, in q's dtype).  A CPU tensor goes to
+    :func:`flash_attention_bwd_ref`; a CUDA tensor launches the backward
+    kernels on the current stream, or raises."""
+    _check_inputs(q, k, v, causal, window)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(t.shape)} {t.dtype} on {t.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    _check_card(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+        code = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            DTYPES[q.dtype], b, sq, sk, h, kh, d, int(causal), window or 0,
+            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, code, "flash_attention_bwd")
+    launches[BWD_ROUTES[q.dtype]] += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The forward kernel with :func:`flash_attention_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0, and Sq <= Sk
+    unless neither mask is on.  Returns (B, Sq, H, D) in q's dtype; scores,
+    softmax and sums are f32.
+
+    A CPU tensor goes to :func:`flash_attention_ref`, which autograd
+    differentiates; a CUDA tensor launches its dtype's kernel on the current
+    stream (``ROUTES``), through :class:`_Attention` where grad mode is on
+    and an input requires grad, or raises.
+    """
+    _check_inputs(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    _check_card(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)

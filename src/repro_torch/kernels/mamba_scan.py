@@ -74,7 +74,7 @@ def mamba_scan(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor, x: torch.Tens
         return mamba_scan_ref(dt, b, c, x, a, state)
     if dt.device.type != "cuda":
         raise ValueError(f"mamba_scan runs on cpu or cuda, not {dt.device}")
-    _build.refuse_grad("mamba_scan", dt, b, c, x, a, state)
+    _build.refuse_grad("mamba_scan", "its backward is ROADMAP A17c", dt, b, c, x, a, state)
     bsz, s, di = dt.shape
     ds = b.shape[2]
     if ds not in STATE_DIMS:

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (twin of
 ``repro/kernels/ref.py``: the bottleneck oracles at ``:33-59``,
 ``flash_attention_ref`` at ``:11``, ``rwkv6_scan_ref`` at ``:62`` and
-``mamba_scan_ref`` at ``:79``).
+``mamba_scan_ref`` at ``:79``), and of the two backward kernels, which have
+no reference twin: ``flash_attention_bwd_ref`` and ``rwkv6_scan_bwd_ref``.
 
 The kernel wrappers use them for tensors on the CPU, the tests hold them
 against the JAX package's Pallas kernels, and ``chip_smoke.py`` holds the
@@ -29,6 +30,18 @@ def check_lengths(sq: int, sk: int, causal: bool, window: Optional[int]) -> None
                          f"takes neither a causal nor a window mask")
 
 
+def attention_mask(sq, sk, causal, window, device):
+    """(Sq, Sk) bool: the keys each query sees, queries at the last Sq keys."""
+    qp = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kp = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return mask
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None) -> torch.Tensor:
     """Plain softmax attention with GQA.
@@ -44,16 +57,41 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     k = torch.repeat_interleave(k, g, dim=2)
     v = torch.repeat_interleave(v, g, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
-    qp = torch.arange(sq, device=q.device)[:, None] + (sk - sq)   # aligned last positions
-    kp = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kp <= qp
-    if window is not None:
-        mask &= kp > qp - window
-    s = s.masked_fill(~mask, NEG_INF)
+    s = s.masked_fill(~attention_mask(sq, sk, causal, window, q.device), NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
+                            window: Optional[int] = None) -> tuple:
+    """The gradient of :func:`flash_attention_ref` with respect to q, k, v,
+    from the formulas: P materialised, ``dV = P^T dO``, ``dP = dO V^T``,
+    ``dS = P (dP - delta)`` with ``delta = rowsum(dO * O)`` of the given
+    forward output ``o``, ``dQ = dS K / sqrt(D)``, ``dK = dS^T Q / sqrt(D)``,
+    the kv heads' gradients summed over their query heads.  f32 math,
+    gradients in the inputs' dtype."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    check_lengths(sq, sk, causal, window)
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+    qf, dof = q.float(), do.float()
+    kf = torch.repeat_interleave(k.float(), g, dim=2)
+    vf = torch.repeat_interleave(v.float(), g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    s = s.masked_fill(~attention_mask(sq, sk, causal, window, q.device), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    del s
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 1)[..., None]     # (B, H, Sq, 1)
+    ds = p * (dp - delta)
+    del p, dp
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dk = dk.reshape(b, sk, kh, g, d).sum(3)
+    dv = dv.reshape(b, sk, kh, g, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_edge_probe(b, sq, sk, h, kh, d, *, rising: bool, seed: int = 0,
@@ -96,6 +134,43 @@ def rwkv6_scan_ref(r, k, v, w, u, state):
         outs.append(torch.einsum("bhk,bhkv->bhv", rt, s + u[..., None] * kv))
         s = wt[..., None] * s + kv
     return torch.stack(outs, dim=1), s
+
+
+def rwkv6_scan_bwd_ref(r, k, v, w, u, state, dout, dstate) -> tuple:
+    """The gradient of :func:`rwkv6_scan_ref` with respect to (r, k, v, w,
+    u, state), given those of its two outputs, ``dout`` (B, S, H, D) and
+    ``dstate`` (B, H, D, D): the states S_0 .. S_{S-1} kept from a forward
+    loop, then, with G the gradient of the state after step t, from
+    G = dstate backwards::
+
+        dr_t = (S_{t-1} + u k_t v_t^T) dout_t
+        dk_t = r_t u (v_t . dout_t) + G v_t
+        dv_t = (r_t . (u k_t)) dout_t + G^T k_t
+        dw_t = rowsum(G * S_{t-1})
+        du  += r_t k_t (v_t . dout_t)
+        G   <- diag(w_t) G + r_t dout_t^T
+
+    and the start state's gradient is the last G.
+    """
+    states = [state]
+    for t in range(r.shape[1] - 1):
+        kv = k[:, t, ..., :, None] * v[:, t, ..., None, :]
+        states.append(w[:, t, ..., None] * states[-1] + kv)
+    g = dstate
+    du = torch.zeros_like(u)
+    grads = {name: torch.empty_like(r) for name in ("r", "k", "v", "w")}
+    for t in range(r.shape[1] - 1, -1, -1):
+        rt, kt, vt, wt, dt = r[:, t], k[:, t], v[:, t], w[:, t], dout[:, t]
+        sp = states[t]
+        vd = (vt * dt).sum(-1, keepdim=True)                    # (B, H, 1)
+        grads["r"][:, t] = torch.einsum("bhij,bhj->bhi", sp, dt) + u * kt * vd
+        grads["k"][:, t] = rt * u * vd + torch.einsum("bhij,bhj->bhi", g, vt)
+        grads["v"][:, t] = ((rt * u * kt).sum(-1, keepdim=True) * dt
+                            + torch.einsum("bhij,bhi->bhj", g, kt))
+        grads["w"][:, t] = (g * sp).sum(-1)
+        du = du + (rt * kt * vd).sum(0)
+        g = wt[..., None] * g + rt[..., :, None] * dt[..., None, :]
+    return grads["r"], grads["k"], grads["v"], grads["w"], du, g
 
 
 def mamba_scan_ref(dt, b, c, x, a, state):

@@ -20,6 +20,14 @@ the lanes' partials pairwise, then ``fma(v_j, a_t, .)``), within 1e-4 of max
 the TPU kernel) and takes any S >= 1, so a decode step (S = 1) goes through
 it too.  The kernel copies 16 bytes at a time: r, k, v, w and u must start
 on a 16-byte boundary, as every tensor the allocator makes does.
+
+The backward (``csrc/rwkv6_scan_bwd.cu``, a library of its own; no TPU
+kernel has one) runs where grad mode is on and an input requires grad: the
+forward then goes through :class:`_Scan`, and its backward launches
+:func:`rwkv6_scan_bwd` for the gradients of r, k, v, w, u and the start
+state from those of out and the final state.  It runs the recurrence
+forwards keeping the state every 16 steps, then the chunks backwards, each
+recomputed from its start, one block per (batch, head, 16 state columns).
 """
 from __future__ import annotations
 
@@ -28,10 +36,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import rwkv6_scan_ref
+from repro_torch.kernels.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 
-# launches of the CUDA kernel (a CPU call launches nothing)
-launches = {"chain": 0}
+# launches of the CUDA kernels: the forward ("chain") and the backward (a
+# call runs its two kernels); a CPU call launches nothing
+launches = {"chain": 0, "bwd": 0}
 
 # what the ssm configuration uses: rwkv6-1.6b's head dim
 HEAD_DIMS = (64,)
@@ -39,6 +48,10 @@ HEAD_DIMS = (64,)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rwkv6_scan": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+}
+_BWD_SIGNATURES = {
+    "rwkv6_scan_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),
+    "rwkv6_scan_bwd_workspace": ([_I, _I, _I], ctypes.c_longlong),
 }
 
 
@@ -63,29 +76,21 @@ def _check_inputs(r, k, v, w, u, state) -> None:
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
 
 
-def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-               u: torch.Tensor, state: torch.Tensor) -> tuple:
-    """r, k, v, w: (B, S, H, D) f32; u: (H, D); state: (B, H, D, D) f32.
-    Returns (out (B, S, H, D), final state (B, H, D, D)); ``state`` is not
-    written.
-
-    A CPU tensor goes to :func:`rwkv6_scan_ref`; a CUDA tensor launches the
-    kernel on the current stream, or raises (also where grad mode is on and
-    an input requires grad: the kernel has no backward).
-    """
-    _check_inputs(r, k, v, w, u, state)
-    if r.device.type == "cpu":
-        return rwkv6_scan_ref(r, k, v, w, u, state)
+def _check_card(r, k, v, w, u) -> None:
+    """What the kernels take beyond :func:`_check_inputs`: a CUDA tensor,
+    head dims ``HEAD_DIMS``, r, k, v, w and u on 16-byte boundaries."""
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on cpu or cuda, not {r.device}")
-    _build.refuse_grad("rwkv6_scan", r, k, v, w, u, state)
-    b, s, h, d = r.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
+    if r.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {r.shape[3]}")
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary for the kernel's "
                              f"16-byte copies; it starts at {t.data_ptr():#x}")
+
+
+def _forward(r, k, v, w, u, state) -> tuple:
+    b, s, h, d = r.shape
     out = torch.empty_like(r)
     final = torch.empty_like(state)
     if b * h == 0:
@@ -99,3 +104,80 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
         _build.check(lib, code, "rwkv6_scan")
     launches["chain"] += 1
     return out, final
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on a 16-byte boundary (a copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                   u: torch.Tensor, state: torch.Tensor, dout: torch.Tensor,
+                   dstate: torch.Tensor) -> tuple:
+    """The gradients (dr, dk, dv, dw, du, dstate0) of :func:`rwkv6_scan`'s
+    inputs, given those of its outputs: ``dout`` (B, S, H, D) and ``dstate``
+    (B, H, D, D), f32.  A CPU tensor goes to :func:`rwkv6_scan_bwd_ref`; a
+    CUDA tensor launches the backward kernels on the current stream, or
+    raises."""
+    _check_inputs(r, k, v, w, u, state)
+    for name, t, want in (("dout", dout, r), ("dstate", dstate, state)):
+        if t.shape != want.shape or t.dtype != torch.float32 or t.device != r.device:
+            raise ValueError(f"{name} must be f32 of shape {tuple(want.shape)} on {r.device}; "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if r.device.type == "cpu":
+        return rwkv6_scan_bwd_ref(r, k, v, w, u, state, dout, dstate)
+    _check_card(r, k, v, w, u)
+    b, s, h, d = r.shape
+    state, dout, dstate = _aligned(state), _aligned(dout), _aligned(dstate)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty_like(u)
+    dstate0 = torch.empty_like(state)
+    if b * h == 0:
+        return dr, dk, dv, dw, du.zero_(), dstate0
+    with torch.cuda.device(r.device):
+        lib = _build.load("rwkv6_scan_bwd", _BWD_SIGNATURES)
+        work = torch.empty(lib.rwkv6_scan_bwd_workspace(b, s, h), dtype=torch.float32,
+                           device=r.device)
+        code = lib.rwkv6_scan_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            state.data_ptr(), dout.data_ptr(), dstate.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(),
+            work.data_ptr(), b, s, h, d, torch.cuda.current_stream(r.device).cuda_stream)
+        _build.check(lib, code, "rwkv6_scan_bwd")
+    launches["bwd"] += 1
+    return dr, dk, dv, dw, du, dstate0
+
+
+class _Scan(torch.autograd.Function):
+    """The forward kernel with :func:`rwkv6_scan_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        out, final = _forward(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return out, final
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        return rwkv6_scan_bwd(*ctx.saved_tensors, dout, dstate)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor, state: torch.Tensor) -> tuple:
+    """r, k, v, w: (B, S, H, D) f32; u: (H, D); state: (B, H, D, D) f32.
+    Returns (out (B, S, H, D), final state (B, H, D, D)); ``state`` is not
+    written.
+
+    A CPU tensor goes to :func:`rwkv6_scan_ref`, which autograd
+    differentiates; a CUDA tensor launches the kernel on the current stream,
+    through :class:`_Scan` where grad mode is on and an input requires grad,
+    or raises.
+    """
+    _check_inputs(r, k, v, w, u, state)
+    if r.device.type == "cpu":
+        return rwkv6_scan_ref(r, k, v, w, u, state)
+    _check_card(r, k, v, w, u)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, state)):
+        return _Scan.apply(r, k, v, w, u, state)
+    return _forward(r, k, v, w, u, state)

@@ -3,6 +3,7 @@
 
 * ``forward(params, cfg, batch)``      — full-sequence (prefill)
 * ``serve_step(params, cfg, cache,…)`` — one-token decode against a cache
+* ``loss_fn(params, cfg, batch)``      — chunked cross-entropy (training)
 
 Parameters keep the reference's group-stacked tree: every leaf under
 ``params["layers"]`` (and ``params["enc"]["layers"]``) has a leading group
@@ -21,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba as mamba_mod
@@ -72,6 +74,18 @@ def _group(tree, g: int):
     if isinstance(tree, dict):
         return {k: _group(v, g) for k, v in tree.items()}
     return tree[g]
+
+
+def _groups(tree, n: int) -> list:
+    """Every group's parameters, views from one ``unbind`` of each stacked
+    leaf.  Under autograd a leaf then has one backward node, which stacks
+    the groups' gradients once, where indexing it a group at a time would
+    give each group's gradient the whole stacked shape and add them up:
+    O(groups^2) traffic and several stacked-size buffers at once."""
+    if isinstance(tree, dict):
+        subs = {k: _groups(v, n) for k, v in tree.items()}
+        return [{k: subs[k][g] for k in tree} for g in range(n)]
+    return tree.unbind(0)
 
 
 # ------------------------------------------------------------------ init ----
@@ -215,16 +229,28 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
     return x + f, aux, cache
 
 
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward where grad
+    mode is on (the reference's ``jax.checkpoint`` around each scanned
+    group, ``policy=nothing_saveable``); a plain call otherwise."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _encoder(params, cfg, frames):
     """Whisper-style encoder on stub frame embeddings (B, F, d_frontend):
-    rope at positions 0..F-1 and no mask in its self-attention."""
+    rope at positions 0..F-1 and no mask in its self-attention; each layer
+    recomputed in the backward, as the reference checkpoints it."""
     enc = params["enc"]
     x = dense(frames, enc["proj"]) + enc["pos"][None]
     desc = LayerDesc("attn", "dense")
     positions = torch.arange(frames.shape[1], device=x.device)
-    for i in range(cfg.n_enc_layers):
-        x, _, _ = apply_layer_seq(_group(enc["layers"], i), desc, x, cfg, positions,
-                                  causal=False)
+
+    def layer(p, x):
+        return apply_layer_seq(p, desc, x, cfg, positions, causal=False)[0]
+    for p in _groups(enc["layers"], cfg.n_enc_layers):
+        x = _remat(layer, p, x)
     return _apply_norm(enc["final_norm"], x, cfg)
 
 
@@ -249,20 +275,28 @@ def forward(params, cfg: ModelConfig, batch: dict, *, collect_cache=False):
     (B,P,df) | frames (B,F,df)] on the parameters' device.
 
     Returns dict(x=final-normed (B,S,D), aux, cache=group-stacked cache or
-    None, positions).
+    None, positions).  Where grad mode is on, each group's activations are
+    recomputed in the backward (:func:`_remat`), so a training step runs
+    every layer's forward twice.
     """
     descs, n_groups = block_structure(cfg)
     x, positions, _ = embed_inputs(params, cfg, batch)
     enc_out = _encoder(params, cfg, batch["frames"]) if cfg.family == "encdec" else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [dict() for _ in descs]
-    for g in range(n_groups):
-        group_p = _group(params["layers"], g)
+
+    def group(group_p, x, aux, enc_out):
+        cs = []
         for j, desc in enumerate(descs):
             x, a, c = apply_layer_seq(group_p[f"l{j}"], desc, x, cfg, positions, causal=True,
                                       window=cfg.sliding_window, enc_out=enc_out,
                                       collect_cache=collect_cache)
             aux = aux + a
+            cs.append(c)
+        return x, aux, cs
+    for group_p in _groups(params["layers"], n_groups):
+        x, aux, cs = _remat(group, group_p, x, aux, enc_out)
+        for j, c in enumerate(cs):
             for key, t in c.items():
                 caches[j].setdefault(key, []).append(t)
     x = _apply_norm(params["final_norm"], x, cfg)
@@ -278,6 +312,40 @@ def logits_from_x(params, cfg, x):
     return x @ head
 
 
+def _chunk_ce(xc, lc, head):
+    """Summed cross-entropy ``logsumexp - gold`` of one chunk's f32 logits."""
+    logits = (xc @ head).float()
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, *, chunk: int = 512,
+            aux_weight: float = 0.01) -> tuple:
+    """Chunked softmax cross-entropy (twin of the reference's ``loss_fn``):
+    the (B, S, V) logits are never held in f32, as each ``chunk`` of
+    positions (shrunk until it divides S) makes its logits, sums its
+    cross-entropy, and where grad mode is on recomputes them in the backward
+    rather than keeping them.  A VLM's patch positions carry no loss.
+
+    Returns ``(ce + aux_weight * aux, {"ce": ce, "aux": aux})``, ce the mean
+    over the B * S labelled positions."""
+    out = forward(params, cfg, batch)
+    x, aux = out["x"], out["aux"]
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        x = x[:, -labels.shape[1]:, :]
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        total = total + _remat(_chunk_ce, x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], head)
+    ce = total / (b * s)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
+
 # ------------------------------------------------------------------ cache ----
 def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
     if cfg.sliding_window is not None:
@@ -288,7 +356,16 @@ def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
                device="cuda") -> dict:
     """Empty decode cache (group-stacked leading dim)."""
-    dev = resolve_device(device)
+    return _cache_tree(cfg, batch, seq_len, dtype, resolve_device(device))
+
+
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> dict:
+    """:func:`init_cache`'s tree as ``meta`` tensors: shapes and dtypes, no
+    memory (as :func:`param_spec` is ``init_params``')."""
+    return _cache_tree(cfg, batch, seq_len, dtype, torch.device("meta"))
+
+
+def _cache_tree(cfg: ModelConfig, batch: int, seq_len: int, dtype, dev) -> dict:
     descs, n_groups = block_structure(cfg)
     dt = dtype or cfg.tdtype
     sc = cache_len_for(cfg, seq_len)

@@ -22,6 +22,7 @@ from repro_torch.configs import SERVED, get_config  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import reduced  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -134,11 +135,27 @@ def _kernel_calls(dev):
     }
 
 
+def _cotangents(outs, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(o.shape, generator=g).to(o.device, o.dtype) for o in outs]
+
+
+def _plain_backward(name, inputs, outs, cots):
+    """The plain backward of ``name`` at ``inputs``: the gradients of every
+    input, given the kernel's outputs ``outs`` and their cotangents."""
+    if name == "flash_attention":
+        return ref.flash_attention_bwd_ref(*inputs, outs[0], cots[0], causal=True, window=None)
+    return ref.rwkv6_scan_bwd_ref(*inputs, *cots)
+
+
 def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
-    """A kernel returns a fresh tensor with no grad_fn: a gradient through it
-    would come back as zero.  Each wrapper raises instead, launching
-    nothing, while grad mode is on and an input requires grad; under
-    ``no_grad`` the same call launches."""
+    """A kernel with no backward returns a fresh tensor with no grad_fn: a
+    gradient through it would come back as zero.  The codec and
+    ``mamba_scan`` wrappers raise instead, launching nothing, while grad
+    mode is on and an input requires grad; under ``no_grad`` the same call
+    launches.  ``flash_attention`` and ``rwkv6_scan`` have backward kernels:
+    with any one input requiring grad they launch forward and backward once
+    each, and the gradient equals the plain backward's."""
     for name, (call, inputs) in _kernel_calls(cuda).items():
         for i, t in enumerate(inputs):
             if not t.is_floating_point():
@@ -146,6 +163,20 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
             args = [a.requires_grad_() if j == i else a for j, a in enumerate(
                 [x.detach().clone() for x in inputs])]
             reset_launches()
+            if name in ("flash_attention", "rwkv6_scan"):
+                outs = call(*args)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                cots = _cotangents(outs)
+                (got,) = torch.autograd.grad(outs, [args[i]], cots)
+                torch.cuda.synchronize()
+                counts = launch_counts()[name]
+                assert sum(counts.values()) == 2 and min(
+                    n for n in counts.values() if n) == 1, (name, i, counts)
+                want = _plain_backward(name, [a.detach() for a in inputs],
+                                       [o.detach() for o in outs], cots)[i]
+                assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), (
+                    name, i)
+                continue
             with pytest.raises(RuntimeError, match="requires grad"):
                 call(*args)
             assert sum(launch_counts()[name].values()) == 0, (name, i)
@@ -153,6 +184,10 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
                 call(*args)
             torch.cuda.synchronize()
             assert sum(launch_counts()[name].values()) == 1, (name, i)
+    call, inputs = _kernel_calls(cuda)["mamba_scan"]
+    with pytest.raises(RuntimeError, match="A17c"):
+        call(*[inputs[0].clone().requires_grad_(), *inputs[1:]])
+
 
 def test_split_runtime_on_the_card_matches_the_cpu_path(cuda):
     model = vgg_cifar(n_classes=8, input_hw=16, width_mult=0.25)
@@ -223,7 +258,7 @@ def test_flash_attention_matches_plain(cuda, shape, dtype):
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == {r: int(r == ROUTES[dt])
-                                                  for r in ROUTES.values()}
+                                                  for r in launch_counts()["flash_attention"]}
     assert got.dtype == dt and got.shape == q.shape
     # as tests/test_kernels.py holds the TPU kernel to its ref
     assert float((got.float() - want.float()).abs().max()) <= (2e-5 if dtype == "float32"
@@ -254,6 +289,51 @@ def test_flash_attention_bf16_mask_edges(cuda, shape, rising):
     torch.cuda.synchronize()
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
     assert _step_share(got, want, q, k, v, causal, window) <= 1
+
+
+def _grad_gap(got, want, scales=None):
+    """Max |got - want| of each gradient over its max |want| (or over
+    ``scales``)."""
+    scales = scales or [float(b.float().abs().max()) for b in want]
+    return [float((a.float() - b.float()).abs().max()) / sc
+            for a, b, sc in zip(got, want, scales)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
+    """dq, dk, dv through the autograd path (the backward kernels) against
+    ``flash_attention_bwd_ref`` on the kernel's own output, and the plain
+    forward's autograd gradients: f32 within 1e-4 of each gradient's max,
+    bf16 within 2e-2 (the kernel's forward rounds the weights to bf16)."""
+    b, sq, sk, h, kh, d, causal, window = shape
+    g = torch.Generator().manual_seed(sq * sk + d + 1)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, sq, h, d), generator=g).to(cuda, dt).requires_grad_()
+    k, v = (torch.randn((b, sk, kh, d), generator=g).to(cuda, dt).requires_grad_()
+            for _ in range(2))
+    do = torch.randn((b, sq, h, d), generator=g).to(cuda, dt)
+    reset_launches()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = launch_counts()["flash_attention"]
+    assert counts[ROUTES[dt]] == 1 and counts["bwd_" + ("f32" if dtype == "float32"
+                                                         else "bf16")] == 1
+    assert all(a.dtype == dt and a.shape == t.shape for a, t in zip(got, (q, k, v)))
+    bar = 1e-4 if dtype == "float32" else 2e-2
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(), do,
+                                       causal=causal, window=window)
+    scales = [float(w.float().abs().max()) for w in want]
+    if sk == 1:
+        # one key: the softmax is constant, so dq and dk are 0 in exact
+        # arithmetic and rounding noise on both sides; held at dv's scale
+        scales = [scales[2]] * 3
+    assert max(_grad_gap(got, want, scales)) <= bar
+    q0, k0, v0 = (t.detach().requires_grad_() for t in (q, k, v))
+    plain = torch.autograd.grad(ref.flash_attention_ref(q0, k0, v0, causal=causal,
+                                                        window=window), (q0, k0, v0), do)
+    assert max(_grad_gap(got, plain, scales)) <= bar
 
 
 def test_flash_attention_refuses_other_head_dims_and_masked_sq_above_sk(cuda):
@@ -305,6 +385,41 @@ def test_rwkv6_scan_matches_plain(cuda, shape):
     # as chip_smoke.py holds it: f32 in another summation order
     assert float((out - want_out).abs().max()) <= 1e-4 * float(want_out.abs().max())
     assert float((final - want_st).abs().max()) <= 1e-4 * float(want_st.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 3, 64, False), (1, 37, 2, 64, False),
+                                   (2, 300, 4, 64, False), (1, 16, 2, 64, False),
+                                   (2, 53, 3, 64, False), (2, 300, 4, 64, True)])
+def test_rwkv6_scan_backward_matches_plain(cuda, shape):
+    """The gradients of r, k, v, w, u and the start state through the
+    autograd path (the backward kernels), from a nonzero start state and
+    nonzero gradients of out and of the final state, against
+    ``rwkv6_scan_bwd_ref`` and the plain scan's autograd gradients, each
+    within 1e-4 of its max (f32 in another summation order).  S 1, S 16
+    (one whole chunk of the kernel's), ragged S over several chunks."""
+    b, s, h, d, served_w = shape
+    g = torch.Generator().manual_seed(s + d + 2)
+    r, k, v = (0.5 * torch.randn((b, s, h, d), generator=g) for _ in range(3))
+    if served_w:
+        w = torch.exp(-torch.exp(-4.0 + 0.5 * torch.randn((b, s, h, d), generator=g)))
+        u = 0.1 * torch.randn((h, d), generator=g)
+    else:
+        w = torch.sigmoid(torch.randn((b, s, h, d), generator=g))
+        u = 0.3 * torch.randn((h, d), generator=g)
+    st = 0.2 * torch.randn((b, h, d, d), generator=g)
+    dout, dst = torch.randn((b, s, h, d), generator=g), torch.randn((b, h, d, d), generator=g)
+    args = [a.to(cuda).requires_grad_() for a in (r, k, v, w, u, st)]
+    dout, dst = dout.to(cuda), dst.to(cuda)
+    reset_launches()
+    out, final = rwkv6_scan(*args)
+    got = torch.autograd.grad((out, final), args, (dout, dst))
+    torch.cuda.synchronize()
+    assert launch_counts()["rwkv6_scan"] == {"chain": 1, "bwd": 1}
+    want = ref.rwkv6_scan_bwd_ref(*(a.detach() for a in args), dout, dst)
+    assert max(_grad_gap(got, want)) <= 1e-4
+    plain_args = [a.detach().requires_grad_() for a in args]
+    plain = torch.autograd.grad(ref.rwkv6_scan_ref(*plain_args), plain_args, (dout, dst))
+    assert max(_grad_gap(got, plain)) <= 1e-4
 
 
 def test_rwkv6_scan_refuses_a_view_off_the_16_byte_boundary(cuda):
@@ -428,7 +543,107 @@ def _leaves(tree):
         yield tree
 
 
+def _paths(tree, path=()):
+    """(key path, leaf) of a nest of dicts, in ``_leaves``' order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    else:
+        yield path, tree
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def _train_batch(cfg, dev, b=2, s=40, seed=0):
+    """tokens and labels (numpy seed ``seed``) and the stub frontend's
+    N(0, 1) frames or patches, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    st = s - (cfg.n_patches if cfg.family == "vlm" else 0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, st)).astype(np.int32)).to(dev)
+             for k in ("tokens", "labels")}
+    if cfg.family in ("vlm", "encdec"):
+        key, n = (("frames", cfg.n_frames) if cfg.family == "encdec"
+                  else ("patch_embeds", cfg.n_patches))
+        batch[key] = torch.from_numpy(
+            rng.standard_normal((b, n, cfg.d_frontend)).astype(np.float32)).to(dev, cfg.tdtype)
+    return batch
+
+
+def _loss_and_grads(params, cfg, batch):
+    live = [p.detach().requires_grad_() for p in _leaves(params)]
+    it = iter(live)
+    loss, _ = T.loss_fn(tree_map(lambda _: next(it), params), cfg, batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
+
+
+# the families whose layers all have backward kernels on the card: dense,
+# moe, ssm, encdec and vlm, at the head dims the kernels take
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "deepseek-moe-16b", "rwkv6-1.6b",
+                                  "whisper-tiny", "internvl2-76b"])
+def test_zoo_train_step_on_the_card_matches_the_cpu_path(cuda, arch):
+    """The loss and every gradient of a reduced f32 model through the
+    kernels (each attention layer's forward launched twice: once more when
+    its group is recomputed in the backward) against the plain versions on
+    the CPU: the loss within 1e-5 relative, each gradient within 1e-4 of
+    its leaf's max; then a ``make_train_step`` step on each, their next
+    losses within 1e-5."""
+    import dataclasses
+    from repro_torch.training.optimizer import OptConfig, adamw_init
+    from repro_torch.training.train import make_train_step
+    cfg = dataclasses.replace(reduced(get_config(arch), head_dim=get_config(arch).hd,
+                                      rwkv_head_dim=64), dtype="float32")
+    params_cpu = T.init_params(0, cfg, device="cpu")
+    params = _to(params_cpu, cuda)
+    batch_cpu, batch = _train_batch(cfg, "cpu"), _train_batch(cfg, cuda)
+    reset_launches()
+    loss, grads = _loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    kernel = "rwkv6_scan" if arch == "rwkv6-1.6b" else "flash_attention"
+    fwd, bwd = (("chain", "bwd") if kernel == "rwkv6_scan" else ("simt_f32", "bwd_f32"))
+    assert counts[kernel][bwd] > 0 and counts[kernel][fwd] == 2 * counts[kernel][bwd]
+    want_loss, want = _loss_and_grads(params_cpu, cfg, batch_cpu)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    paths = [path for path, _ in _paths(params_cpu)]
+    by_path = dict(zip(paths, want))
+    for path, g, w in zip(paths, grads, want):
+        top = float(w.abs().max())
+        if path[-1] == "bk":
+            # softmax ignores a shift common to a query's scores: a key
+            # bias's gradient is 0 in exact arithmetic, rounding noise on
+            # both sides, held at the scale of its wk's gradient
+            top = max(top, float(by_path[path[:-1] + ("wk",)].abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * top, path
+    oc = OptConfig(lr=1e-3)
+    step = make_train_step(cfg, oc)
+    losses = []
+    for p, b in ((params, batch), (params_cpu, batch_cpu)):
+        state = adamw_init(p, oc)
+        p, state, _ = step(p, state, b)
+        _, state, metrics = step(p, state, b)
+        losses.append(float(metrics["loss"]))
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+
+
+def test_hybrid_train_step_on_the_card_raises_at_its_first_mamba_layer(cuda):
+    """jamba's Mamba mixers have no backward kernel yet (ROADMAP A17c): its
+    training step on the card raises at its first Mamba layer, naming the
+    item, and launches nothing."""
+    import dataclasses
+    from repro_torch.training.optimizer import OptConfig, adamw_init
+    from repro_torch.training.train import make_train_step
+    arch = "jamba-v0.1-52b"
+    cfg = dataclasses.replace(reduced(get_config(arch), head_dim=get_config(arch).hd),
+                              dtype="float32", **SERVED[arch])
+    assert T.block_structure(cfg)[0][0].mixer == "mamba"
+    params = T.init_params(0, cfg, device=cuda)
+    oc = OptConfig()
+    reset_launches()
+    with pytest.raises(RuntimeError, match="A17c"):
+        make_train_step(cfg, oc)(params, adamw_init(params, oc), _train_batch(cfg, cuda))
+    assert all(n == 0 for c in launch_counts().values() for n in c.values())
