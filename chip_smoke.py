@@ -29,10 +29,13 @@ no install: it puts ``src/`` on the path itself).  Phases:
    head dim 64 (its encoder, its decoder's self-attention, its
    cross-attention with Sq > Sk, and a window), each in bf16 (the
    ``wgmma_bf16`` route) and f32 (``simt_f32``), timed beside
-   ``scaled_dot_product_attention``; every bf16 row also within a bar
-   relative to |o| (``FLASH_BF16_STEP``) and again on the mask-edge probe
-   (``ref.flash_edge_probe``), where a key off by one at a causal, window
-   or key-range edge moves the output far past the bf16 bar;
+   ``scaled_dot_product_attention``; the training route's forward
+   (``flash_attention_lse``) bit for bit the same output, its row
+   log-sum-exp within ``FLASH_LSE_BAR`` of the plain one; every bf16 row
+   also within a bar relative to |o| (``FLASH_BF16_STEP``) and again on
+   the mask-edge probe (``ref.flash_edge_probe``), where a key off by one
+   at a causal, window or key-range edge moves the output far past the
+   bf16 bar;
 7. (Z3) hold ``rwkv6_scan`` against its plain version at the rwkv6-1.6b
    prefill and decode shapes, a ragged one and the prefill at the served
    model's decays;
@@ -92,9 +95,12 @@ no install: it puts ``src/`` on the path itself).  Phases:
     over each request's prompt and served tokens under Z4's rule, and in f32
     against the request served alone at the f32 bar; one admit and one full
     tick profiled;
-13e. (Z2b) hold ``flash_attention_bwd`` (the backward of the autograd path)
+13e. (Z2b) hold ``flash_attention_bwd`` (the backward of the autograd path;
+    bf16 on ``wgmma``, f32 SIMT, both reading the forward's lse)
     against ``ref.flash_attention_bwd_ref`` on the kernel's own output and
-    against autograd through the plain forward, bf16 and f32, at llama3.2-3b's
+    against autograd through the plain forward, bf16 and f32, two calls bit
+    for bit equal, each row with the tiles and each kernel's registers and
+    shared memory (a bf16 kernel that spills fails), at llama3.2-3b's
     training shape (B 1, S 4096), the llama prefill, ``window512_d64``,
     whisper-tiny's encoder and cross-attention (Sq 448 and 2000 over 1500
     frames), timed beside SDPA's backward; (Z5b) ``rwkv6_scan_bwd`` the same
@@ -326,6 +332,13 @@ FLASH_BAR = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # At |o| >= 4 that step (0.031) is past the absolute bar's 2e-2, and at |o|
 # near 0.1 the absolute bar lets 20% through
 FLASH_BF16_STEP = 2.0 ** -7
+# the row log-sum-exp the forward keeps for the backward (flash_attention_lse)
+# against ref.flash_attention_lse_ref, absolute (lse is near ln Sk + 0.5 at
+# these shapes, 7-9, where an f32 step is 4.8e-7 to 9.5e-7): f32 sums in
+# another order; in bf16 also the scores summed on the tensor cores, the
+# softmax in base 2 and lse taken back to base e (at most 1.9e-6 over
+# twelve backward shapes on an H100 before this bar was set)
+FLASH_LSE_BAR = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
 # rwkv6_scan at the rwkv6-1.6b prefill and decode (H 32, D 64): (label, B, S,
 # H, D, nonzero initial state, decays and bonus as the served model's).  The
 # other rows take w = exp(-exp(N(0, 1) - 1)), down to about 1e-9, and u =
@@ -1792,6 +1805,16 @@ def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
     k, v = (torch.randn((b, sk, kh, d), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     err, step, want = flash_err(label, q, k, v, causal, window)
+    # the training route's forward: the same output bit for bit, and lse
+    out, lse = FA.flash_attention_lse(q, k, v, causal=causal, window=window)
+    same = torch.equal(out, FA.flash_attention(q, k, v, causal=causal, window=window))
+    lse_err = float((lse - ref.flash_attention_lse_ref(q, k, causal=causal, window=window))
+                    .abs().max())
+    if not same or not lse_err <= FLASH_LSE_BAR[dtype]:
+        raise AssertionError(f"flash_attention at {label}: the output with lse equal to the one "
+                             f"without: {same}; lse off the plain one by {lse_err} (bar "
+                             f"{FLASH_LSE_BAR[dtype]})")
+    del out, lse
     # the mask-edge probe: rising scores find the causal (or key-range)
     # edge, falling ones the window's
     probe = {}
@@ -1824,7 +1847,7 @@ def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
     e = {"shape": label, "B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
          "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
          "route": FA.ROUTES[dtype], "max_abs_err": err, "step_bar_share": step,
-         "edge_probe_err_and_step_share": probe,
+         "lse_max_abs_err": lse_err, "edge_probe_err_and_step_share": probe,
          "library_max_abs_err": lib_err, "live_pairs": pairs,
          "ms": device_ms(run), "call_ms": call_ms(run),
          "plain_ms": device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
@@ -1926,19 +1949,28 @@ def grad_gaps(got, want, scales=None) -> list:
 
 def check_flash_bwd(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
     """Z2b: ``flash_attention_bwd`` at one shape against the plain backward
-    (on the kernel's own forward output) and autograd through the plain
-    forward, on the card; the autograd route of the wrapper bit for bit the
-    direct call; timed beside SDPA's backward and its bound."""
+    (on the kernel's own forward output and lse) and autograd through the
+    plain forward, on the card; two calls bit for bit equal, and the
+    autograd route of the wrapper bit for bit the direct call; the tiles and
+    each kernel's registers and shared memory (``cudaFuncGetAttributes``);
+    timed beside SDPA's backward and its bound."""
     q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
     k, v = (torch.randn((b, sk, kh, d), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     do = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
-    with torch.no_grad():
-        o = FA.flash_attention(q, k, v, causal=causal, window=window)
-    got = FA.flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    o, lse = FA.flash_attention_lse(q, k, v, causal=causal, window=window)
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
     torch.cuda.synchronize()
     if not all(g.dtype == dtype and torch.isfinite(g).all() for g in got):
         raise AssertionError(f"flash backward at {label}: not finite or not {dtype}")
+    deterministic = all(torch.equal(a, g) for a, g in zip(again, got))
+    if not deterministic:
+        raise AssertionError(f"flash backward at {label}: two calls differ")
+    del again
+    info = FA.bwd_kernel_info(dtype, d)
+    if dtype == torch.bfloat16 and any(k_["local_bytes"] for k_ in info["kernels"].values()):
+        raise AssertionError(f"flash backward at {label}: a kernel spills: {info}")
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
     err_ref = grad_gaps(got, want)
     abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
@@ -1964,7 +1996,8 @@ def check_flash_bwd(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> d
         raise AssertionError(f"flash backward at {label}: the autograd route differs from the "
                              f"direct call, or launched {counts}")
     del via, out
-    # SDPA's backward: its forward and backward less its forward, the same mask
+    # SDPA's backward: its forward and backward less its forward, the same mask,
+    # each timed as the kernels are, by CUDA-graph replay
     mask = None
     if window is not None or (causal and sq != sk):
         mask = ref.attention_mask(sq, sk, causal, window, "cuda")
@@ -1986,12 +2019,14 @@ def check_flash_bwd(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> d
     e = {"shape": label, "B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "D": d,
          "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
          "route": FA.BWD_ROUTES[dtype], "rel_err_vs_plain_bwd": err_ref,
-         "rel_err_vs_autograd": err_plain, "max_abs_err": abs_err, "live_pairs": pairs,
-         "ms": device_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, causal=causal,
+         "rel_err_vs_autograd": err_plain, "max_abs_err": abs_err,
+         "deterministic": deterministic, "tiles": info["tiles"], "kernels": info["kernels"],
+         "live_pairs": pairs,
+         "ms": device_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                                         window=window), reps=3),
          "plain_ms": once_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                                                  window=window)),
-         "library_ms": call_ms(sdpa_fwd_bwd) - call_ms(sdpa_fwd),
+         "library_ms": device_ms(sdpa_fwd_bwd, reps=3) - device_ms(sdpa_fwd, reps=3),
          "forward_ms": device_ms(lambda: FA.flash_attention(q, k, v, causal=causal,
                                                             window=window))}
     # q, k, v, o, dO read once, dq, dk, dv written once; 10 D flops a live
@@ -2316,14 +2351,18 @@ def top2_margin(logits: torch.Tensor) -> torch.Tensor:
 ZOO_KERNEL_NAMES = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd",
                     "rwkv6_scan": "wkv6", "rwkv6_scan_bwd": "wkv6_bwd",
                     "mamba_scan": "selective_scan"}
+# the flash kernels one by one (each device name to the longest it holds)
+FLASH_KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd", "flash_bwd_delta", "flash_bwd_dkdv_wgmma",
+                      "flash_bwd_dq_wgmma", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 def device_breakdown(fn, top=6) -> dict:
     """One run of ``fn`` under ``torch.profiler``: the device's busy time
     (the union of its kernel, copy and fill intervals) against the wall
     time, device time by kernel name (the ``top`` largest) and that of each
-    zoo kernel, with its share of the device time.  The profiler slows the
-    host, so the busy share reads low."""
+    zoo kernel and of each flash kernel function, with its share of the
+    device time.  The profiler slows the host, so the busy share reads
+    low."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2344,14 +2383,21 @@ def device_breakdown(fn, top=6) -> dict:
     rows = sorted(by_name.items(), key=lambda r: -r[1])[:top]
     # each kernel name to the longest part it holds ("wkv6_bwd" before "wkv6")
     zoo = dict.fromkeys(ZOO_KERNEL_NAMES, 0.0)
+    flash = {}
     for name, us in by_name.items():
         hits = [k for k, part in ZOO_KERNEL_NAMES.items() if part in name]
         if hits:
             zoo[max(hits, key=lambda k: len(ZOO_KERNEL_NAMES[k]))] += us
+        parts = [part for part in FLASH_KERNEL_NAMES if part in name]
+        if parts:
+            part = max(parts, key=len)
+            flash[part] = flash.get(part, 0.0) + us
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "busy_share": busy / wall_us,
             "n_kernel_names": len(by_name),
             "top": [{"kernel": k[:80], "ms": us / 1e3, "share": us / total} for k, us in rows],
-            "zoo_kernels": {k: {"ms": us / 1e3, "share": us / total} for k, us in zoo.items()}}
+            "zoo_kernels": {k: {"ms": us / 1e3, "share": us / total} for k, us in zoo.items()},
+            "flash_kernels": {k: {"ms": us / 1e3, "share": us / total}
+                              for k, us in flash.items()}}
 
 
 def served_cfg(arch, **changes):

@@ -16,6 +16,13 @@
 // bounds follow the causal and window limits, :54-60); inside a visited
 // tile masked entries get -1e30 and, after the exponential, exactly 0 (:74),
 // so a row whose first live tile is all masked for it adds nothing.
+// Given an lse pointer (the training route), each kernel also writes each
+// query row's natural log-sum-exp of its scaled scores over its live keys,
+// (B, H, Sq) f32, from the running max and sum it holds (the bf16 kernel's
+// are in base 2, and it converts), so the backward recomputes no row
+// statistics; without one it writes nothing more and o is the same.
+// The bf16 kernel's TMA, mbarrier and wgmma helpers live in hopper.cuh,
+// which the bf16 backward shares.
 //
 // Bound on an H100: the bytes of q, k, v and o once at 3.35 TB/s against
 // 4*B*H*D*(live query-key pairs) operations, at 989 TFLOP/s for bf16 inputs
@@ -56,6 +63,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "kernel_error.cuh"
 
 namespace {
@@ -79,8 +87,8 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 template <class T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int n_heads, int n_kv_heads, int sq, int sk, int causal,
-          int window, float scale) {
+          T* __restrict__ o, float* __restrict__ lse, int n_heads, int n_kv_heads, int sq,
+          int sk, int causal, int window, float scale) {
   constexpr int DP = D + 1;  // padded rows: reading a column is conflict-free
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
@@ -212,12 +220,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       ob[(size_t)r * q_stride + tx + 16 * c] = from_f32<T>(acc[i][c] / denom);
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * sq + r] = m[i] + logf(l[i]);
   }
 }
 
 template <class T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int sk,
-           int h, int kh, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
+           int sk, int h, int kh, int causal, int window, float scale, cudaStream_t stream) {
   constexpr int smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -225,21 +234,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
   const dim3 grid(b * h, (sq + BQ - 1) / BQ);
   flash_fwd<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), h, kh, sq, sk, causal, window, scale);
+      static_cast<T*>(o), lse, h, kh, sq, sk, causal, window, scale);
   return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- bf16 ----
 namespace wg {
 
+using namespace hopper;
+
 constexpr int BQ = 128;                  // query rows a block: 2 warpgroups of 64
 constexpr int BK = 128;                  // keys a tile
 constexpr int NT = 256;
-constexpr int SLAB = 64;                 // columns of one 128-byte swizzle slab
-constexpr int ROW_BYTES = SLAB * 2;      // 128
 constexpr int Q_SLAB = BQ * ROW_BYTES;   // 16 KB
 constexpr int KV_SLAB = BK * ROW_BYTES;  // 16 KB
-constexpr float LOG2E = 1.4426950408889634f;
 
 // the shared-memory plan at head dim D: a row is D / 64 slabs
 template <int D>
@@ -253,118 +261,6 @@ struct Plan {
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGE_BYTES;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-// one arrival that also announces the bytes the TMA loads will bring
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// box (64 columns, 1 head, rows, 1 batch) at (column, head, row, batch)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int head, int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand in shared memory: start
-// address, leading and stride byte offsets, all in 16-byte units; layout 1
-// is the 128-byte swizzle.  The stride offset steps 8 rows of 128 bytes.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keeps the compiler from touching accumulators across the async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define ACC8(d, i)                                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), A and B bf16 in shared
-// memory, both K-major; scale_d 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24), ACC8(d, 32), ACC8(d, 40),
-        ACC8(d, 48), ACC8(d, 56)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64, f32) += A (64 x 16) B (16 x 64): A bf16 in registers, B bf16
-// in shared memory, MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef ACC8
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Fragments (per warpgroup, thread t = 32 * warp + lane): accumulator entry
 // 4*j + 2*i + c holds row 16*warp + lane/4 + 8*i, column 8*j + 2*(lane%4) + c.
 // The 16 columns 16*kk.. of that fragment, as bf16 pairs in the order of
@@ -373,7 +269,7 @@ template <int D>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                int n_heads, int n_kv_heads, int sq, int sk, int causal, int window,
+                float* __restrict__ lse, int n_heads, int n_kv_heads, int sq, int sk, int causal, int window,
                 float scale_log2) {
   using P = Plan<D>;
   constexpr int NS = P::NS, Q_BYTES = P::Q_BYTES, KV_BYTES = P::KV_BYTES;
@@ -452,11 +348,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     // S = Q K^T: D / 16 k-steps of 16 over D, 4 in each 64-column slab
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;  // 16 columns of 2 bytes
-      wgmma_ss_n128(s, desc(q_rows + (kk / 4) * Q_SLAB + off, 16),
-                    desc(k_tile + (kk / 4) * KV_SLAB + off, 16), kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(s, desc_k(q_rows, Q_SLAB, kk), desc_k(k_tile, KV_SLAB, kk), kk > 0);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -510,7 +403,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     for (int c = 0; c < NS; ++c)
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs_n64(acc[c], p[kk], desc(v_tile + c * KV_SLAB + kk * 16 * ROW_BYTES, KV_SLAB));
+        wgmma_rs_n64(acc[c], p[kk], desc_mn(v_tile, KV_SLAB, c, kk));
     wgmma_commit();
     wgmma_wait();
 #pragma unroll
@@ -536,54 +429,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         *reinterpret_cast<__nv_bfloat162*>(orow + c * SLAB + 8 * j + col0) =
             __floats2bfloat162_rn(acc[c][idx] / denom, acc[c][idx + 1] / denom);
       }
+    // m_run and l_run are in base 2; lse is kept in base e
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(size_t)bh * sq + r] = (m_run[i] + log2f(l_run[i])) * LN2;
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime's entry-point
-// query, so the library links no -lcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// (B, S, heads, D) bf16 as a 4-D map (D, heads, S, B); a box is 64 columns
-// x 1 head x box_rows rows x 1 batch, 128-byte swizzled, zeros past S
 template <int D>
-bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int batch, int rows,
-                int heads, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)rows * heads * D * 2};
-  const cuuint32_t box[4] = {SLAB, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int sk, int h,
-           int kh, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
+           int sk, int h, int kh, int causal, int window, float scale, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -596,8 +450,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, (sq + BQ - 1) / BQ);
-  flash_fwd_wgmma<D><<<grid, NT, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), h,
-                                                 kh, sq, sk, causal, window, scale * LOG2E);
+  flash_fwd_wgmma<D><<<grid, NT, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+                                                 h, kh, sq, sk, causal, window, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -606,8 +460,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  window <= 0 means no window.  Sq > Sk only
-// with neither mask.
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
+// with neither mask.  lse, where not null, gets each query row's natural
+// log-sum-exp of its scaled scores over its live keys, (B, H, Sq) f32, for
+// the backward; null writes nothing.  o is the same either way.
+extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, float* lse,
                                int dtype, int b, int sq, int sk, int h, int kh, int d,
                                int causal, int window, float scale, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || (sk < sq && (causal || window > 0)) || h <= 0 ||
@@ -617,11 +473,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   const bool d64 = d == 64;
   switch (dtype) {
     case 0:
-      return d64 ? launch<float, 64>(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st)
-                 : launch<float, 128>(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st);
+      return d64 ? launch<float, 64>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale, st)
+                 : launch<float, 128>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale,
+                                      st);
     case 1:
-      return d64 ? wg::launch<64>(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st)
-                 : wg::launch<128>(q, k, v, o, b, sq, sk, h, kh, causal, window, scale, st);
+      return d64 ? wg::launch<64>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale, st)
+                 : wg::launch<128>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels (twin of
 ``repro/kernels/ref.py``: the bottleneck oracles at ``:33-59``,
 ``flash_attention_ref`` at ``:11``, ``rwkv6_scan_ref`` at ``:62`` and
-``mamba_scan_ref`` at ``:79``), and of the two backward kernels, which have
-no reference twin: ``flash_attention_bwd_ref`` and ``rwkv6_scan_bwd_ref``.
+``mamba_scan_ref`` at ``:79``), of the row log-sum-exp the flash forward
+keeps for its backward (``flash_attention_lse_ref``), and of the two
+backward kernels, which have no reference twin: ``flash_attention_bwd_ref``
+and ``rwkv6_scan_bwd_ref``.
 
 The kernel wrappers use them for tensors on the CPU, the tests hold them
 against the JAX package's Pallas kernels, and ``chip_smoke.py`` holds the
@@ -60,6 +62,20 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     s = s.masked_fill(~attention_mask(sq, sk, causal, window, q.device), NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, *, causal: bool = True,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """(B, H, Sq) f32: each query row's natural log-sum-exp of its scaled
+    f32 scores ``q.k / sqrt(D)`` over the keys the mask leaves live, what
+    the forward kernels keep for the backward."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    check_lengths(sq, sk, causal, window)
+    k = torch.repeat_interleave(k, h // kh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    s = s.masked_fill(~attention_mask(sq, sk, causal, window, q.device), NEG_INF)
+    return torch.logsumexp(s, dim=-1)
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,

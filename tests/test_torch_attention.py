@@ -1,12 +1,14 @@
 """The port's flash attention (its plain version on the CPU) and attention
 layers against the JAX package: the Pallas kernel in interpret mode, its
-``ref`` oracle and ``repro.models.layers``."""
+``ref`` oracle and ``repro.models.layers``; the bf16 CUDA kernels' forward
+and backward arithmetic, written out in PyTorch, against the same."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import math  # noqa: E402
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -15,8 +17,10 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import launch_counts, ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,  # noqa: E402
+                                                 flash_attention_lse)
 from repro_torch.models import layers as TL  # noqa: E402
+from test_torch_backward import FLASH_SHAPES as BWD_SHAPES  # noqa: E402
 
 # tests/test_kernels.py's FLASH_CASES: b, sq, sk, h, kh, d, causal, window, dtype
 FLASH_CASES = [
@@ -184,6 +188,151 @@ def test_bf16_kernel_numerics_match_the_reference_models_chunked_attention(windo
     got = _np(_wgmma_kernel_numerics(tq, tk, tv, causal=True, window=window))
     want = _np(JL.attention(jq, jk, jv, window=window))
     np.testing.assert_allclose(got, want, atol=TOL["bfloat16"])
+
+
+def _wgmma_bwd_numerics(q, k, v, do, *, causal, window):
+    """The arithmetic of the bf16 backward kernels (``flash_bwd_dkdv_wgmma``
+    and ``flash_bwd_dq_wgmma``), written out in PyTorch (CPU), on the
+    forward kernel's output (:func:`_wgmma_kernel_numerics`): lse the
+    natural log-sum-exp of the masked f32 scores, as the forward keeps it;
+    delta = rowsum(dO o) in f32; over 64-query by 64-key tiles (the dK/dV
+    kernel's query tiles, the dQ kernel's key tiles), S and dP in f32 from
+    the bf16 inputs, P = exp2(S scale log2 e - lse log2 e) with masked
+    entries 0, dS = P (dP - delta) from the f32 P, then P and dS rounded to
+    bf16 before dV += P^T dO, dK += dS^T Q and dQ += dS K, accumulated in
+    f32; dK and dQ times 1/sqrt(D), the GQA group summed, each rounded once
+    to bf16."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    o = _wgmma_kernel_numerics(q, k, v, causal=causal, window=window)
+    lse = ref.flash_attention_lse_ref(q, k, causal=causal, window=window)   # (B, H, Sq)
+    lse2 = (lse * math.log2(math.e)).transpose(1, 2)                         # (B, Sq, H)
+    delta = (do.float() * o.float()).sum(-1)                                 # (B, Sq, H)
+    qf, dof = q.float(), do.float()
+    kf = torch.repeat_interleave(k, g, dim=2).float()
+    vf = torch.repeat_interleave(v, g, dim=2).float()
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    scale_log2 = torch.tensor(math.log2(math.e) / math.sqrt(d), dtype=torch.float32)
+    mask = ref.attention_mask(sq, sk, causal, window, "cpu")
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, sq, 64):
+        rq = slice(q0, min(q0 + 64, sq))
+        for k0 in range(0, sk, 64):
+            rk = slice(k0, min(k0 + 64, sk))
+            s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rq], kf[:, rk])
+            dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, rq], vf[:, rk])
+            p = torch.exp2(s * scale_log2 - lse2[:, rq].transpose(1, 2)[..., None])
+            p = p.masked_fill(~mask[rq, rk], 0.0)
+            ds = p * (dp - delta[:, rq].transpose(1, 2)[..., None])
+            p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+            dv[:, rk] += torch.einsum("bhqk,bqhd->bkhd", p16, dof[:, rq])
+            dk[:, rk] += torch.einsum("bhqk,bqhd->bkhd", ds16, qf[:, rq])
+            dq[:, rq] += torch.einsum("bhqk,bkhd->bqhd", ds16, kf[:, rk])
+    dk = (dk * scale).reshape(b, sk, kh, g, d).sum(3)
+    dv = dv.reshape(b, sk, kh, g, d).sum(3)
+    return (dq * scale).bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _grads_close(got, want, bar, what):
+    """Each gradient within ``bar`` of its max |want|."""
+    for i, (a, w) in enumerate(zip(got, want)):
+        a, w = _np(a).astype(np.float64), _np(w).astype(np.float64)
+        top = np.abs(w).max()
+        assert top > 0 and np.abs(a - w).max() <= bar * top, (what, "dq dk dv".split()[i],
+                                                              np.abs(a - w).max() / top)
+
+
+def _bwd_inputs(shape, seed):
+    """q, k, v, dO drawn with numpy, as bf16 jax arrays and torch tensors."""
+    b, sq, sk, h, kh, d = shape[:6]
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s_).astype(np.float32)
+              for s_ in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d), (b, sq, h, d))]
+    return _both(arrays, "bfloat16")
+
+
+# every shape of tests/test_torch_backward.py, in bf16: causal, a window, GQA
+# groups of 1, 2 and 4, Sq < Sk ragged, Sq > Sk without a mask, D 64 and 128
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_bf16_backward_numerics_fit_the_bar(shape):
+    """The bf16 backward kernels' roundings (P and dS in bf16, the base-2
+    softmax off the forward's lse, the forward's bf16 output in delta)
+    against the plain backward and ``jax.vjp`` of the reference's oracle,
+    which keep P in f32, at the bf16 bar of chip_smoke's Z2b: 2e-2 of each
+    gradient's max.  4.5-8.9 s each, 47.0 s in all, in the driver's 6-worker
+    run of the whole suite (the reference's eager ``jax.vjp``)."""
+    b, sq, sk, h, kh, d, causal, window = shape
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _bwd_inputs(shape, sq * sk + d)
+    got = _wgmma_bwd_numerics(tq, tk, tv, tdo, causal=causal, window=window)
+    assert [t.dtype for t in got] == [torch.bfloat16] * 3
+    assert [t.shape for t in got] == [tq.shape, tk.shape, tv.shape]
+    o = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    want = ref.flash_attention_bwd_ref(tq, tk, tv, o, tdo, causal=causal, window=window)
+    _grads_close(got, want, 2e-2, "the plain backward")
+    _, vjp = jax.vjp(lambda q_, k_, v_: jref.flash_attention_ref(q_, k_, v_, causal=causal,
+                                                                 window=window), jq, jk, jv)
+    _grads_close(got, vjp(jdo), 2e-2, "jax.vjp of the reference's oracle")
+
+
+# Sq * Sk above 512**2: the reference model's attention takes _flash_chunked,
+# which rounds P to bf16 as the kernels do
+@pytest.mark.parametrize("window", [None, 200])
+def test_bf16_backward_numerics_match_the_reference_models_chunked_attention(window):
+    """The bf16 backward's arithmetic against ``jax.vjp`` of
+    ``repro.models.layers.attention`` at 2e-2 of each gradient's max.  18.9 s
+    (window None) and 14.5 s (200) in the 6-worker run of the whole suite."""
+    shape = (1, 640, 640, 4, 2, 128, True, window)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _bwd_inputs(shape, 641)
+    got = _wgmma_bwd_numerics(tq, tk, tv, tdo, causal=True, window=window)
+    _, vjp = jax.vjp(lambda q_, k_, v_: JL.attention(q_, k_, v_, window=window), jq, jk, jv)
+    _grads_close(got, vjp(jdo), 2e-2, "jax.vjp of repro.models.layers.attention")
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_lse_ref_matches_jax_logsumexp_of_the_reference_scores(shape):
+    """``ref.flash_attention_lse_ref`` (what the forward kernels keep for the
+    backward) against ``jax.nn.logsumexp`` of the scores the reference's
+    oracle forms (``repro/kernels/ref.py:11``: f32, scaled, masked to
+    -1e30), within 1e-5 absolute (f32 sums in another order).  1.7-4.1 s each,
+    16.8 s in all, in the 6-worker run of the whole suite."""
+    b, sq, sk, h, kh, d, causal, window = shape
+    rng = np.random.default_rng(sq + sk + d)
+    q_np = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k_np = rng.standard_normal((b, sk, kh, d)).astype(np.float32)
+    got = ref.flash_attention_lse_ref(torch.from_numpy(q_np), torch.from_numpy(k_np),
+                                      causal=causal, window=window)
+    kj = jnp.repeat(jnp.asarray(k_np), h // kh, axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q_np), kj) / math.sqrt(d)
+    qp = jnp.arange(sq)[:, None] + (sk - sq)
+    kp = jnp.arange(sk)[None, :]
+    mask = jnp.ones((sq, sk), bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    want = np.asarray(jax.nn.logsumexp(jnp.where(mask, s, -1e30), axis=-1))
+    assert got.shape == (b, h, sq) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_cpu_lse_and_backward_wrappers_are_the_plain_versions():
+    """On the CPU ``flash_attention_lse`` is the plain forward and the plain
+    lse, and ``flash_attention_bwd`` the plain backward, with or without an
+    lse; neither launches a kernel.  0.3 s in the 6-worker run of the whole
+    suite."""
+    case = (1, 40, 56, 4, 2, 64, True, 16, "bfloat16")
+    _, (tq, tk, tv) = _both(_qkv(case, 5), "bfloat16")
+    before = launch_counts()
+    out, lse = flash_attention_lse(tq, tk, tv, causal=True, window=16)
+    assert torch.equal(out, ref.flash_attention_ref(tq, tk, tv, causal=True, window=16))
+    assert torch.equal(lse, ref.flash_attention_lse_ref(tq, tk, causal=True, window=16))
+    do = torch.ones_like(tq)
+    want = ref.flash_attention_bwd_ref(tq, tk, tv, out, do, causal=True, window=16)
+    for given in (lse, None):
+        got = flash_attention_bwd(tq, tk, tv, out, do, given, causal=True, window=16)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert launch_counts() == before
 
 
 def test_cpu_flash_launches_nothing_and_checks_inputs():

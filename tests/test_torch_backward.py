@@ -65,8 +65,9 @@ def test_flash_attention_bwd_ref(shape):
     got = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
     assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
     # the wrapper on CPU tensors is the plain version
+    lse = ref.flash_attention_lse_ref(q, k, causal=causal, window=window)
     assert all(torch.equal(a, b_) for a, b_ in zip(
-        got, flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)))
+        got, flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)))
     live = [t.clone().requires_grad_() for t in (q, k, v)]
     plain = torch.autograd.grad(flash_attention(*live, causal=causal, window=window), live, do)
     _close(got, plain, "autograd through the plain forward")

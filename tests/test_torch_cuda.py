@@ -13,7 +13,8 @@ from repro_torch.core import bottleneck as B  # noqa: E402
 from repro_torch.kernels import launch_counts, ref, reset_launches, tiles  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # noqa: E402
-from repro_torch.kernels.flash_attention import ROUTES, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (ROUTES, flash_attention,  # noqa: E402
+                                                 flash_attention_bwd, flash_attention_lse)
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.models.vgg import vgg_cifar  # noqa: E402
@@ -334,6 +335,64 @@ def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
     plain = torch.autograd.grad(ref.flash_attention_ref(q0, k0, v0, causal=causal,
                                                         window=window), (q0, k0, v0), do)
     assert max(_grad_gap(got, plain, scales)) <= bar
+
+
+# the forward's row log-sum-exp against ref.flash_attention_lse_ref,
+# absolute, as chip_smoke.FLASH_LSE_BAR: f32 sums in another order; in bf16
+# also the scores summed on the tensor cores, the softmax in base 2 and lse
+# taken back to base e
+LSE_BAR = {"float32": 1e-5, "bfloat16": 1e-5}
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_lse_matches_plain(cuda, shape, dtype):
+    """The training route's forward: its output bit for bit the serving
+    route's (the kernel writes lse only when asked), and each row's lse
+    within ``LSE_BAR`` of the plain one."""
+    b, sq, sk, h, kh, d, causal, window = shape
+    g = torch.Generator().manual_seed(sq * sk + d + 2)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, sq, h, d), generator=g).to(cuda, dt)
+    k, v = (torch.randn((b, sk, kh, d), generator=g).to(cuda, dt) for _ in range(2))
+    reset_launches()
+    out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    plain = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"][ROUTES[dt]] == 2
+    assert torch.equal(out, plain)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    want = ref.flash_attention_lse_ref(q, k, causal=causal, window=window)
+    assert float((lse - want).abs().max()) <= LSE_BAR[dtype]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_is_deterministic(cuda, shape, dtype):
+    """No atomics: two calls of the direct backward give equal bits."""
+    b, sq, sk, h, kh, d, causal, window = shape
+    g = torch.Generator().manual_seed(sq * sk + d + 3)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, sq, h, d), generator=g).to(cuda, dt)
+    k, v = (torch.randn((b, sk, kh, d), generator=g).to(cuda, dt) for _ in range(2))
+    do = torch.randn((b, sq, h, d), generator=g).to(cuda, dt)
+    o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    first = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    second = flash_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+def test_flash_attention_bwd_refuses_a_missing_lse_and_a_misaligned_do(cuda):
+    q = torch.zeros((1, 8, 4, 128), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16, device=cuda)
+    o, lse = flash_attention_lse(q, kv, kv)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, kv, kv, o, q.clone(), None)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    do = flat[1:].view(q.shape)               # contiguous, 2 bytes off the boundary
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_bwd(q, kv, kv, o, do, lse)
 
 
 def test_flash_attention_refuses_other_head_dims_and_masked_sq_above_sk(cuda):
