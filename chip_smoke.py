@@ -29,7 +29,9 @@ no install: it puts ``src/`` on the path itself).  Phases:
    head dim 64 (its encoder, its decoder's self-attention, its
    cross-attention with Sq > Sk, and a window), each in bf16 (the
    ``wgmma_bf16`` route) and f32 (``simt_f32``), timed beside
-   ``scaled_dot_product_attention``; the training route's forward
+   ``scaled_dot_product_attention``, each row with the kernel's tiles,
+   registers and shared memory (a kernel that spills fails the row); the
+   training route's forward
    (``flash_attention_lse``) bit for bit the same output, its row
    log-sum-exp within ``FLASH_LSE_BAR`` of the plain one; every bf16 row
    also within a bar relative to |o| (``FLASH_BF16_STEP``) and again on
@@ -96,11 +98,11 @@ no install: it puts ``src/`` on the path itself).  Phases:
     against the request served alone at the f32 bar; one admit and one full
     tick profiled;
 13e. (Z2b) hold ``flash_attention_bwd`` (the backward of the autograd path;
-    bf16 on ``wgmma``, f32 SIMT, both reading the forward's lse)
+    bf16 on ``wgmma``, f32 on register tiles, both reading the forward's lse)
     against ``ref.flash_attention_bwd_ref`` on the kernel's own output and
     against autograd through the plain forward, bf16 and f32, two calls bit
     for bit equal, each row with the tiles and each kernel's registers and
-    shared memory (a bf16 kernel that spills fails), at llama3.2-3b's
+    shared memory (a kernel of either dtype that spills fails), at llama3.2-3b's
     training shape (B 1, S 4096), the llama prefill, ``window512_d64``,
     whisper-tiny's encoder and cross-attention (Sq 448 and 2000 over 1500
     frames), timed beside SDPA's backward; (Z5b) ``rwkv6_scan_bwd`` the same
@@ -1805,6 +1807,10 @@ def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
     k, v = (torch.randn((b, sk, kh, d), generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     err, step, want = flash_err(label, q, k, v, causal, window)
+    # the kernel's tiles, registers and shared memory; a spill fails the row
+    info = FA.kernel_info(dtype, d)
+    if any(k_["local_bytes"] for k_ in info["kernels"].values()):
+        raise AssertionError(f"flash_attention at {label}: the kernel spills: {info}")
     # the training route's forward: the same output bit for bit, and lse
     out, lse = FA.flash_attention_lse(q, k, v, causal=causal, window=window)
     same = torch.equal(out, FA.flash_attention(q, k, v, causal=causal, window=window))
@@ -1848,8 +1854,8 @@ def check_flash(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> dict:
          "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
          "route": FA.ROUTES[dtype], "max_abs_err": err, "step_bar_share": step,
          "lse_max_abs_err": lse_err, "edge_probe_err_and_step_share": probe,
-         "library_max_abs_err": lib_err, "live_pairs": pairs,
-         "ms": device_ms(run), "call_ms": call_ms(run),
+         "library_max_abs_err": lib_err, "live_pairs": pairs, "tiles": info["tiles"],
+         "kernels": info["kernels"], "ms": device_ms(run), "call_ms": call_ms(run),
          "plain_ms": device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                                 window=window), reps=3),
          "library_ms": device_ms(library)}
@@ -1969,7 +1975,7 @@ def check_flash_bwd(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> d
         raise AssertionError(f"flash backward at {label}: two calls differ")
     del again
     info = FA.bwd_kernel_info(dtype, d)
-    if dtype == torch.bfloat16 and any(k_["local_bytes"] for k_ in info["kernels"].values()):
+    if any(k_["local_bytes"] for k_ in info["kernels"].values()):
         raise AssertionError(f"flash backward at {label}: a kernel spills: {info}")
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
     err_ref = grad_gaps(got, want)

@@ -48,14 +48,21 @@
 // Rounding P to bf16 is what the JAX model's own chunked attention does
 // (repro/models/layers.py:139-144); the TPU kernel keeps P in f32.
 //
-// f32 (flash_fwd): f32 FMA on the CUDA cores, as the TPU kernel computes in
-// f32 (:66-79).  One block per (batch * head, 64-query tile), 256 threads; a
-// loop over 64-key tiles takes the place of the TPU kernel's sequential kv
-// grid axis (:36-39), with the running max and sum in registers and an f32
-// accumulator of 4 rows x D/16 columns per thread.  q (pre-scaled by
-// 1/sqrt(D), as :66), k and v tiles sit in shared memory; the P.V product
-// takes each softmax weight from the thread that computed it by a warp
-// shuffle.
+// f32 (flash_fwd_f32<D>): f32 FMA on the CUDA cores, as the TPU kernel
+// computes in f32 (:66-79); bound by those operations at 67 TFLOP/s (2.825
+// ms before this design at the deepseek-moe-16b prefill, 35% of its bound).
+// flash_f32.cuh's register tiles: one block of 2 D threads per (batch *
+// head, 64-query tile), 8 query rows x 4 columns a thread in both products;
+// a loop over D-key tiles takes the place of the TPU kernel's sequential kv
+// grid axis (:36-39).  q (64 x D) sits in shared memory for the block; a key
+// tile streams through the cp.async ring as D / 32 d-slices of K, for S =
+// q K^T, then D / 32 slices of 32 V rows, for O += P V, the next slice in
+// flight while one is read.  Between the two, the online softmax runs on S
+// in registers (a row's max and sum over its group's lanes, the running max
+// and sum a row in registers, natural exp), and P goes to shared memory in
+// the layout P V reads, where only its row group reads it back.  At D 128 a
+// block takes 103 KB of shared memory (two a multiprocessor), at D 64 53 KB
+// (four); either way 16 warps an SM and at most 128 registers a thread.
 #include <cstddef>
 #include <cstdint>
 
@@ -63,6 +70,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_f32.cuh"
 #include "hopper.cuh"
 #include "kernel_error.cuh"
 
@@ -72,29 +80,54 @@ constexpr float NEG_INF = -1e30f;            // the TPU kernel's mask value
 constexpr unsigned FULL = 0xffffffffu;
 
 // ------------------------------------------------------------------ f32 ----
-constexpr int BQ = 64, BK = 64, NT = 256;  // 16 x 16 threads
+namespace simt {
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
+using f32::all_live;
+using f32::cmax;
+using f32::copy_rows;
+using f32::cp_wait;
+using f32::KC;
+using f32::Lanes;
+using f32::live;
+using f32::make_ring;
+using f32::mma_nn;
+using f32::mma_nt;
+using f32::ROWS;
+using f32::STAGES;
+using f32::TM;
+using f32::TN;
+using f32::zero;
 
-template <class T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+// the f32 block at head dim D: 64 queries, D-key tiles; the ring's stage
+// holds a d-slice of a K tile ([D keys][32]) or 32 rows of a V tile
+template <int D>
+struct Plan {
+  using L = Lanes<D>;
+  static constexpr int BQ = ROWS, BK = D;
+  static constexpr int K_SLICE = BK * L::LK, V_ROWS = KC * L::LD;
+  static constexpr int STAGE = cmax(K_SLICE, V_ROWS);
+  static constexpr int SMEM = sizeof(float) * (2 * BQ * L::LD + STAGES * STAGE + 2 * BQ);
+};
 
-// Thread t owns query rows ty + 16*i (i < 4) with ty = t / 16, and within a
-// key tile the columns tx + 16*j (j < 4) of the scores, of the output the
-// columns tx + 16*c (c < D/16), with tx = t % 16.  The 16 threads of one ty
-// are one half of a warp, so a row's max and sum are shuffle reductions
-// within 16 lanes.
-template <class T, int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, float* __restrict__ lse, int n_heads, int n_kv_heads, int sq,
-          int sk, int causal, int window, float scale) {
-  constexpr int DP = D + 1;  // padded rows: reading a column is conflict-free
-  constexpr int DC = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;           // [BQ][DP], q * scale
-  float* ks = qs + BQ * DP;   // [BK][DP]
-  float* vs = ks + BK * DP;   // [BK][D]
+// Lane l of group g owns query rows g + NG i (i < 8), of a key tile's
+// scores the keys l + NL j, of the output the columns 4 l .. 4 l + 3 (j < 4).
+// Each row's running max and sum sit in shared memory (lane 0 of its group
+// writes them), not in the group's registers.
+template <int D>
+__global__ void __launch_bounds__(Lanes<D>::NT, 512 / Lanes<D>::NT)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int n_heads, int n_kv_heads, int sq, int sk, int causal, int window, float scale) {
+  using L = Lanes<D>;
+  using P = Plan<D>;
+  constexpr int NT = L::NT, NL = L::NL, NG = L::NG, LD = L::LD, LK = L::LK;
+  constexpr int BQ = P::BQ, BK = P::BK, NKS = D / KC, NVS = BK / KC;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]: the block's queries
+  float* ps = qs + BQ * LD;                      // [BQ][LD]: P of the key tile (BK = D)
+  float* ring = ps + BQ * LD;                    // STAGES x STAGE
+  float* ms = ring + STAGES * P::STAGE;          // [BQ]: each row's running max
+  float* ls = ms + BQ;                           // [BQ]: and sum of weights
 
   const int bh = blockIdx.x;
   const int b = bh / n_heads, h = bh % n_heads;
@@ -102,141 +135,113 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   // the last tiles carry the most keys under a causal mask: launch them first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int shift = sk - sq;  // query row r sits at key position r + shift
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, g = tid / NL, l = tid % NL;
 
   const size_t q_stride = (size_t)n_heads * D, kv_stride = (size_t)n_kv_heads * D;
-  const T* qb = q + (size_t)b * sq * q_stride + (size_t)h * D;
-  const T* kb = k + (size_t)b * sk * kv_stride + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * sk * kv_stride + (size_t)kvh * D;
-
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    qs[r * DP + d] = q0 + r < sq ? to_f32(qb[(size_t)(q0 + r) * q_stride + d]) * scale : 0.f;
-  }
+  const float* qb = q + (size_t)b * sq * q_stride + (size_t)h * D;
+  const float* kb = k + (size_t)b * sk * kv_stride + (size_t)kvh * D;
+  const float* vb = v + (size_t)b * sk * kv_stride + (size_t)kvh * D;
 
   // keys any query of this tile can see: [k_begin, k_end)
   const int q_lo = q0 + shift, q_hi = min(q0 + BQ, sq) - 1 + shift;
-  int k_end = sk, k_begin = 0;
-  if (causal) k_end = min(sk, q_hi + 1);
-  if (window > 0) k_begin = max(0, q_lo - window + 1) / BK * BK;
+  const int k_end = causal ? min(sk, q_hi + 1) : sk;
+  const int k_begin = window > 0 ? max(0, q_lo - window + 1) / BK * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
+  // stage n: of key tile n / (NKS + NVS), the d-slices of K, then V by 32 rows
+  auto stage = [=](float* dst, int n) {
+    const int k0 = k_begin + n / (NKS + NVS) * BK, c = n % (NKS + NVS);
+    if (c < NKS)
+      copy_rows<BK, KC, NT>(dst, LK, kb + c * KC, kv_stride, k0, sk, tid);
+    else
+      copy_rows<KC, D, NT>(dst, LD, vb, kv_stride, k0 + (c - NKS) * KC, sk, tid);
+  };
+  copy_rows<BQ, D, NT>(qs, LD, qb, q_stride, q0, sq, tid);
+  auto tiles = make_ring<P::STAGE>(ring, stage, n_tiles * (NKS + NVS));
+  tiles.start();
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int r = idx / D, d = idx % D;
-      const bool in = k0 + r < sk;
-      const size_t off = (size_t)(k0 + r) * kv_stride + d;
-      ks[r * DP + d] = in ? to_f32(kb[off]) : 0.f;
-      vs[r * D + d] = in ? to_f32(vb[off]) : 0.f;
-    }
-    __syncthreads();
+  float acc[TM][TN], s[TM][TN];
+  if (tid < BQ) ms[tid] = NEG_INF, ls[tid] = 0.f;
+  zero(acc);
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-    }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    // S = q K^T over the tile's d-slices
+    zero(s);
+#pragma unroll 1
+    for (int c = 0; c < NKS; ++c)
+      mma_nt<NG, NL, LD, LK>(s, qs + g * LD + c * KC, tiles.next() + l * LK);
 
-    // online softmax, row by row; s[i][j] becomes the weight p
+    // online softmax, row by row: a row's max and sum over the group's NL
+    // lanes; P into shared memory for the group's P V
+    const bool whole = all_live(q0, BQ, k0, BK, sq, sk, causal, window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i + shift;
-      bool live[4];
+    for (int i = 0; i < TM; ++i) {
+      const int r = g + NG * i;
+      bool ok[TN];
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        bool ok = kp < sk;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && kp > qp - window;
-        live[j] = ok;
-        s[i][j] = ok ? s[i][j] : NEG_INF;
+      for (int j = 0; j < TN; ++j) {
+        ok[j] = whole || live(q0 + r, k0 + l + NL * j, sq, sk, shift, causal, window);
+        s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int w = 8; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, w, 16));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      for (int w = NL / 2; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, w, NL));
+      // every lane reads the row's max before lane 0, past the shuffles
+      // below, writes the new one
+      const float m_old = ms[r], m_new = fmaxf(m_old, mx);
+      const float alpha = expf(m_old - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = live[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += s[i][j];
+      for (int j = 0; j < TN; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        ps[r * LD + l + NL * j] = p;
+        rs += p;
       }
 #pragma unroll
-      for (int w = 8; w > 0; w >>= 1) rs += __shfl_xor_sync(FULL, rs, w, 16);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
+      for (int w = NL / 2; w > 0; w >>= 1) rs += __shfl_xor_sync(FULL, rs, w, NL);
+      if (l == 0) ls[r] = ls[r] * alpha + rs, ms[r] = m_new;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+      for (int j = 0; j < TN; ++j) acc[i][j] *= alpha;
     }
+    __syncwarp();
 
-    // acc += P V: the weight of key tx' + 16*j lives in lane tx' of this half-warp
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll 4
-      for (int src = 0; src < 16; ++src) {
-        const int kk = src + 16 * j;
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[i] = __shfl_sync(FULL, s[i][j], src, 16);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const float vv = vs[kk * D + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
-        }
-      }
-    }
+    // O += P V over the tile's keys, 32 at a time
+#pragma unroll 1
+    for (int c = 0; c < NVS; ++c)
+      mma_nn<NG, LD, LD>(acc, ps + g * LD + c * KC, tiles.next() + 4 * l);
   }
+  cp_wait<0>();
+  __syncthreads();  // every row's sum and max are in
 
-  T* ob = o + (size_t)b * sq * q_stride + (size_t)h * D;
+  float* ob = o + (size_t)b * sq * q_stride + (size_t)h * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int i = 0; i < TM; ++i) {
+    const int r = q0 + g + NG * i;
     if (r >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      ob[(size_t)r * q_stride + tx + 16 * c] = from_f32<T>(acc[i][c] / denom);
-    if (lse != nullptr && tx == 0) lse[(size_t)bh * sq + r] = m[i] + logf(l[i]);
+    const float lsum = ls[g + NG * i], denom = fmaxf(lsum, 1e-30f);
+    *reinterpret_cast<float4*>(ob + (size_t)r * q_stride + 4 * l) =
+        make_float4(acc[i][0] / denom, acc[i][1] / denom, acc[i][2] / denom, acc[i][3] / denom);
+    if (lse != nullptr && l == 0) lse[(size_t)bh * sq + r] = ms[g + NG * i] + logf(lsum);
   }
 }
 
-template <class T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
            int sk, int h, int kh, int causal, int window, float scale, cudaStream_t stream) {
-  constexpr int smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, D>,
+  constexpr int smem = Plan<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * h, (sq + BQ - 1) / BQ);
-  flash_fwd<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, h, kh, sq, sk, causal, window, scale);
+  const dim3 grid(b * h, (sq + Plan<D>::BQ - 1) / Plan<D>::BQ);
+  flash_fwd_f32<D><<<grid, Lanes<D>::NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, h, kh, sq, sk, causal, window, scale);
   return cudaGetLastError();
 }
+
+}  // namespace simt
 
 // ----------------------------------------------------------------- bf16 ----
 namespace wg {
@@ -457,6 +462,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 }  // namespace wg
 
+using f32::attributes;
+
+template <int D>
+int info(int dtype, int* out) {
+  if (dtype == 1) {
+    out[0] = wg::BQ, out[1] = wg::BK, out[2] = wg::NT;
+    return attributes(wg::flash_fwd_wgmma<D>, wg::Plan<D>::SMEM, out + 3);
+  }
+  out[0] = simt::Plan<D>::BQ, out[1] = simt::Plan<D>::BK, out[2] = f32::Lanes<D>::NT;
+  return attributes(simt::flash_fwd_f32<D>, simt::Plan<D>::SMEM, out + 3);
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  window <= 0 means no window.  Sq > Sk only
@@ -467,18 +484,26 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int dtype, int b, int sq, int sk, int h, int kh, int d,
                                int causal, int window, float scale, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || (sk < sq && (causal || window > 0)) || h <= 0 ||
-      kh <= 0 || h % kh != 0 || (d != 64 && d != 128) || (sq + BQ - 1) / BQ > 65535)
+      kh <= 0 || h % kh != 0 || (d != 64 && d != 128) || (sq + f32::ROWS - 1) / f32::ROWS > 65535)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool d64 = d == 64;
   switch (dtype) {
     case 0:
-      return d64 ? launch<float, 64>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale, st)
-                 : launch<float, 128>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale,
-                                      st);
+      return d64 ? simt::launch<64>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale, st)
+                 : simt::launch<128>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale,
+                                     st);
     case 1:
       return d64 ? wg::launch<64>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale, st)
                  : wg::launch<128>(q, k, v, o, lse, b, sq, sk, h, kh, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// the forward's tiles (queries a block, keys a tile, threads a block) into
+// out[0..2], then its kernel's registers, static and dynamic shared memory
+// and local bytes into out[3..6], for a dtype and head dim
+extern "C" int flash_attention_info(int dtype, int d, int* out) {
+  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128)) return cudaErrorInvalidValue;
+  return d == 64 ? info<64>(dtype, out) : info<128>(dtype, out);
 }

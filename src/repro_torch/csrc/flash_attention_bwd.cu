@@ -55,13 +55,25 @@
 //   to bf16 before their products, dS computed from the f32 P; the JAX
 //   model's chunked attention rounds P so too (repro/models/layers.py:139-144).
 //
-// f32 (flash_bwd_dkdv<D>, flash_bwd_dq<D>): f32 FMA on the CUDA cores,
-// 64 x 64 tiles, 256 threads.  Thread t owns tile rows ty + 16 i (i < 4),
-// ty = t / 16, and of a 64 x 64 score tile the columns tx + 16 j (j < 4), of
-// a D-wide accumulator the columns tx + 16 c (c < D / 16), tx = t % 16.
-// Tiles sit in shared memory with padded rows, so that a column read is free
-// of bank conflicts.  Both dtypes' kernels share Geom, live, key_range and
-// query_range.
+// f32 (flash_bwd_dkdv<D>, flash_bwd_dq<D>): f32 FMA on the CUDA cores, on
+// flash_f32.cuh's register tiles (8 rows x 4 columns a thread in every
+// product, float4 operand reads, a cp.async ring with the next 32-wide slice
+// in flight); bound by the 10 D flops a live pair at 67 TFLOP/s (19.25 ms
+// before this design at the llama3.2-3b train_4k step, 20% of its bound).
+//   dK/dV: a block holds 64 keys, K and V loaded once; D-query tiles of Q
+//     and dO stream through the ring twice, as d-slices for S^T = K Q^T and
+//     dP^T = V dO^T, then as 32-row slices for dV += P^T dO and dK += dS^T Q.
+//     Its 4 D threads are two halves: one makes P^T (into shared memory) and
+//     dV, the other dP^T, dS^T (reading P^T after the next stage's barrier)
+//     and dK, so a thread holds one D-wide accumulator (8 x 4) beside one
+//     score tile.  At D 128 one 512-thread block an SM (204 KB of shared
+//     memory), at D 64 two of 256 (104 KB).
+//   dQ: a block holds 64 queries and 2 D threads; a D-key tile streams as
+//     d-slices of Q beside K (S), of dO beside V (dP), then 32-row slices
+//     of K (dQ += dS K), P and then dS in one shared tile.  88 KB at D 128
+//     (two blocks an SM), 54 KB at D 64 (four).
+//   Every block holds 16 warps an SM at most 128 registers a thread.  Both
+//   dtypes' kernels share Geom, key_range and query_range.
 #include <cstddef>
 #include <cstdint>
 
@@ -69,14 +81,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_f32.cuh"
 #include "hopper.cuh"
 #include "kernel_error.cuh"
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int BQ = 64, BK = 64, NT = 256;
-constexpr int PS = BK + 1;  // a padded row of a score tile
+constexpr int NT = 256;  // threads of a delta block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -116,14 +128,10 @@ struct Geom {
   float scale;
 };
 
-// is the key at position kp live for query row qr (position qr + shift).
-// Plain ints, not a Geom: with the Geom form ptxas spilled 24 bytes of the
-// bf16 dK/dV kernel at D 128, which sits at the 255-register cap
-__device__ __forceinline__ bool live(int qr, int kp, int sq, int sk, int shift, int causal,
-                                     int window) {
-  const int qp = qr + shift;
-  return qr < sq && kp < sk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
-}
+// is the key at position kp live for query row qr (flash_f32.cuh; plain
+// ints, not a Geom: with the Geom form ptxas spilled 24 bytes of the bf16
+// dK/dV kernel at D 128, which sits at the 255-register cap)
+using f32::live;
 
 // keys the queries [q0, q0 + NQ) can see: [k_begin, k_end), k_begin on an
 // NK-key tile
@@ -144,245 +152,302 @@ __device__ __forceinline__ void query_range(int k0, const Geom& g, int& r_lo, in
 }
 
 // ------------------------------------------------------------------ f32 ----
-// rows [r0, r0 + R) of one head (row stride ``stride``) into a tile of row
-// length ``ld``; rows at or past n are zeros
-template <int D, int R>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          size_t stride, int r0, int n, int ld) {
-  for (int idx = threadIdx.x; idx < R * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    dst[r * ld + d] = r0 + r < n ? src[(size_t)(r0 + r) * stride + d] : 0.f;
-  }
-}
+namespace simt {
 
-// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two D-wide tiles
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b, float (&s)[4][4],
-                                         int tx, int ty) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[(ty + 16 * i) * DP + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-  }
-}
+using f32::all_live;
+using f32::cmax;
+using f32::copy_rows;
+using f32::KC;
+using f32::Lanes;
+using f32::make_ring;
+using f32::mma_nn;
+using f32::mma_nt;
+using f32::ROWS;
+using f32::STAGES;
+using f32::TM;
+using f32::TN;
+using f32::zero;
 
-// P and dS of a (query tile, key tile) pair into ps and dss ([BQ][PS]; ps may
-// be null), from the q, dO, k and v tiles in shared memory
+// dQ at head dim D: 64 queries a block, D-key tiles.  A ring stage holds a
+// d-slice of the Q (then dO) tile beside one of the K (then V) tile, or 32
+// rows of the K tile.
 template <int D>
-__device__ __forceinline__ void probs_and_dscores(const float* qs, const float* dos,
-                                                  const float* ks, const float* vs, float* ps,
-                                                  float* dss, const float (&lse_r)[4],
-                                                  const float (&dl_r)[4], int q0, int k0,
-                                                  const Geom& g, int tx, int ty) {
-  float s[4][4], dp[4][4];
-  tile_dot<D>(qs, ks, s, tx, ty);
-  tile_dot<D>(dos, vs, dp, tx, ty);
-  const int shift = g.sk - g.sq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // r < g.sq twice: without the first, ptxas spills 8 bytes of dQ at D 128
-      const bool ok =
-          r < g.sq && live(r, k0 + tx + 16 * j, g.sq, g.sk, shift, g.causal, g.window);
-      const float p = ok ? expf(s[i][j] * g.scale - lse_r[i]) : 0.f;
-      const int at = (ty + 16 * i) * PS + tx + 16 * j;
-      if (ps) ps[at] = p;
-      dss[at] = p * (dp[i][j] - dl_r[i]);
-    }
-  }
-}
+struct DqPlan {
+  using L = Lanes<D>;
+  static constexpr int BQ = ROWS, BK = D;
+  static constexpr int STAGE = cmax((BQ + BK) * L::LK, KC * L::LD);
+  static constexpr int SMEM = sizeof(float) * (BQ * L::LD + 2 * BQ + STAGES * STAGE);
+};
 
-// 2. dK and dV of one key tile of one kv head
+// dK and dV at head dim D: 64 keys a block, D-query tiles, two halves of
+// 2 D threads.  A ring stage holds d-slices of the Q and dO tiles side by
+// side, or 32 rows of each.
 template <int D>
-__global__ void __launch_bounds__(NT)
+struct DkdvPlan {
+  using L = Lanes<D>;
+  static constexpr int BK = ROWS, BQ = D, NT = 2 * L::NT;
+  static constexpr int STAGE = cmax(2 * BQ * L::LK, 2 * KC * L::LD);
+  static constexpr int SMEM = sizeof(float) * (4 * BK * L::LD + STAGES * STAGE);
+};
+
+// 2. dK and dV of one key tile of one kv head.  The first half computes
+// S^T = K Q^T, P^T = exp(S^T scale - lse) and dV += P^T dO; the second
+// dP^T = V dO^T, dS^T = P^T (dP^T - delta) (P^T read back from the first
+// half's shared tile after the stage barrier) and dK += dS^T Q.  Lane l of
+// group gr of a half owns keys gr + NG i (i < 8), of a query tile the
+// queries l + NL j, of its accumulator the columns 4 l .. 4 l + 3.  The GQA
+// group's query heads add into the same registers, head after head.
+template <int D>
+__global__ void __launch_bounds__(DkdvPlan<D>::NT, 512 / DkdvPlan<D>::NT)
 flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, Geom g) {
-  constexpr int DP = D + 1, DC = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;            // [BK][DP]
-  float* vs = ks + BK * DP;    // [BK][DP]
-  float* qs = vs + BK * DP;    // [BQ][DP]
-  float* dos = qs + BQ * DP;   // [BQ][DP]
-  float* ps = dos + BQ * DP;   // [BQ][PS]
-  float* dss = ps + BQ * PS;   // [BQ][PS]
+  using L = Lanes<D>;
+  using P = DkdvPlan<D>;
+  constexpr int NT = P::NT, NTH = L::NT, NL = L::NL, NG = L::NG, LD = L::LD, LK = L::LK;
+  constexpr int BK = P::BK, BQ = P::BQ, NS = D / KC, NR = BQ / KC;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [BK][LD]
+  float* vs = ks + BK * LD;                      // [BK][LD]
+  float* pts = vs + BK * LD;                     // [BK][LD]: P^T of the query tile (BQ = D)
+  float* dsts = pts + BK * LD;                   // [BK][LD]: dS^T
+  float* ring = dsts + BK * LD;
+
   const int bk = blockIdx.y, b = bk / g.n_kv_heads, kvh = bk % g.n_kv_heads;
   const int grp = g.n_heads / g.n_kv_heads;
+  // the first key tiles see the most queries under a causal mask: launched first
   const int k0 = blockIdx.x * BK;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, half = tid / NTH, gr = (tid % NTH) / NL, l = tid % NL;
   const size_t q_stride = (size_t)g.n_heads * D, kv_stride = (size_t)g.n_kv_heads * D;
   const size_t kv_off = (size_t)b * g.sk * kv_stride + (size_t)kvh * D;
-  load_tile<D, BK>(ks, k + kv_off, kv_stride, k0, g.sk, DP);
-  load_tile<D, BK>(vs, v + kv_off, kv_stride, k0, g.sk, DP);
+
+  // query rows that can see a key of this block, in BQ-row tiles, head by head
   int r_lo, r_hi;
   query_range<BK>(k0, g, r_lo, r_hi);
+  const int t_lo = r_lo / BQ;
+  const int n_qt = r_hi >= r_lo ? r_hi / BQ - t_lo + 1 : 0;
+  const int n_tiles = grp * n_qt;
+  // stage n (the ring asks for them in order): of the tile of head it / n_qt,
+  // query tile it % n_qt, the d-slices of Q and dO, then both by 32 rows
+  auto stage = [=, hh = 0, qt = 0, c = 0](float* dst, int) mutable {
+    const int q0 = (t_lo + qt) * BQ;
+    const size_t off = (size_t)b * g.sq * q_stride + (size_t)(kvh * grp + hh) * D;
+    if (c < NS) {
+      copy_rows<BQ, KC, NT>(dst, LK, q + off + c * KC, q_stride, q0, g.sq, tid);
+      copy_rows<BQ, KC, NT>(dst + BQ * LK, LK, dout + off + c * KC, q_stride, q0, g.sq, tid);
+    } else {
+      const int r0 = q0 + (c - NS) * KC;
+      copy_rows<KC, D, NT>(dst, LD, q + off, q_stride, r0, g.sq, tid);
+      copy_rows<KC, D, NT>(dst + KC * LD, LD, dout + off, q_stride, r0, g.sq, tid);
+    }
+    if (++c == NS + NR) c = 0, qt = qt + 1 == n_qt ? (++hh, 0) : qt + 1;
+  };
+  if (n_tiles > 0) {
+    copy_rows<BK, D, NT>(ks, LD, k + kv_off, kv_stride, k0, g.sk, tid);
+    copy_rows<BK, D, NT>(vs, LD, v + kv_off, kv_stride, k0, g.sk, tid);
+  }
+  auto tiles = make_ring<P::STAGE>(ring, stage, n_tiles * (NS + NR));
+  tiles.start();
 
-  float acc_k[4][DC], acc_v[4][DC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[a][c] = 0.f, acc_v[a][c] = 0.f;
+  // the first half: S^T from K and Q, its accumulator dV; the second: dP^T
+  // from V and dO, its accumulator dK
+  const float* kv_rows = (half == 0 ? ks : vs) + gr * LD;
+  float* mine = (half == 0 ? pts : dsts) + gr * LD;
+  const float* stats = half == 0 ? lse : delta;
+  float acc[TM][TN], x[TM][TN];
+  zero(acc);
 
-  for (int hh = 0; hh < grp; ++hh) {
-    const int h = kvh * grp + hh;
-    const size_t q_off = (size_t)b * g.sq * q_stride + (size_t)h * D;
-    const float* lb = lse + ((size_t)b * g.n_heads + h) * g.sq;
-    const float* db = delta + ((size_t)b * g.n_heads + h) * g.sq;
-    for (int q0 = r_lo / BQ * BQ; q0 <= r_hi; q0 += BQ) {
-      __syncthreads();  // every thread is done with the previous query tile
-      load_tile<D, BQ>(qs, q + q_off, q_stride, q0, g.sq, DP);
-      load_tile<D, BQ>(dos, dout + q_off, q_stride, q0, g.sq, DP);
-      float lse_r[4], dl_r[4];
+  for (int it = 0; it < n_tiles; ++it) {
+    const int h = kvh * grp + it / n_qt, q0 = (t_lo + it % n_qt) * BQ;
+    // this thread's queries' lse (first half) or delta (second)
+    float st[TN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = q0 + ty + 16 * i;
-        lse_r[i] = r < g.sq ? lb[r] : 0.f;
-        dl_r[i] = r < g.sq ? db[r] : 0.f;
-      }
-      __syncthreads();
-      probs_and_dscores<D>(qs, dos, ks, vs, ps, dss, lse_r, dl_r, q0, k0, g, tx, ty);
-      __syncthreads();
-      // dV += P^T dO and dK += dS^T Q over the tile's query rows
-#pragma unroll 4
-      for (int i = 0; i < BQ; ++i) {
-        float pr[4], dr[4];
+    for (int j = 0; j < TN; ++j) {
+      const int r = q0 + l + NL * j;
+      st[j] = r < g.sq ? stats[((size_t)b * g.n_heads + h) * g.sq + r] : 0.f;
+    }
+    zero(x);
+#pragma unroll 1
+    for (int c = 0; c < NS; ++c)
+      mma_nt<NG, NL, LD, LK>(x, kv_rows + c * KC, tiles.next() + half * BQ * LK + l * LK);
+
+    if (half == 0) {  // P^T, masked entries exact zeros
+      const bool whole = all_live(q0, BQ, k0, BK, g.sq, g.sk, g.causal, g.window);
+      const int shift = g.sk - g.sq;
 #pragma unroll
-        for (int a = 0; a < 4; ++a) pr[a] = ps[i * PS + ty + 16 * a], dr[a] = dss[i * PS + ty + 16 * a];
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const float o_ = dos[i * DP + tx + 16 * c], q_ = qs[i * DP + tx + 16 * c];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            acc_v[a][c] = fmaf(pr[a], o_, acc_v[a][c]);
-            acc_k[a][c] = fmaf(dr[a], q_, acc_k[a][c]);
-          }
+        for (int j = 0; j < TN; ++j) {
+          const bool ok = whole || live(q0 + l + NL * j, k0 + gr + NG * i, g.sq, g.sk,
+                                             shift, g.causal, g.window);
+          pts[(gr + NG * i) * LD + l + NL * j] = ok ? expf(x[i][j] * g.scale - st[j]) : 0.f;
         }
+    }
+#pragma unroll 1
+    for (int c = 0; c < NR; ++c) {
+      const float* s = tiles.next();
+      if (half == 1 && c == 0) {  // dS^T, after the barrier that shows P^T
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int at = (gr + NG * i) * LD + l + NL * j;
+            dsts[at] = pts[at] * (x[i][j] - st[j]);
+          }
+        __syncwarp();
       }
+      // dV += P^T dO (dO's rows after Q's in the stage), dK += dS^T Q
+      mma_nn<NG, LD, LD>(acc, mine + c * KC, s + (1 - half) * KC * LD + 4 * l);
     }
   }
+
+  float* out = half == 0 ? dv : dk;
+  const float sc = half == 0 ? 1.f : g.scale;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = k0 + ty + 16 * a;
+  for (int i = 0; i < TM; ++i) {
+    const int j = k0 + gr + NG * i;
     if (j >= g.sk) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const size_t off = kv_off + (size_t)j * kv_stride + tx + 16 * c;
-      dk[off] = acc_k[a][c] * g.scale;
-      dv[off] = acc_v[a][c];
-    }
+    *reinterpret_cast<float4*>(out + kv_off + (size_t)j * kv_stride + 4 * l) =
+        make_float4(acc[i][0] * sc, acc[i][1] * sc, acc[i][2] * sc, acc[i][3] * sc);
   }
 }
 
-// 3. dQ of one query tile of one head
+// 3. dQ of one query tile of one head: over the live key tiles, S = Q K^T
+// to P (into shared memory), dP = dO V^T to dS = P (dP - delta) in place,
+// then dQ += dS K.  Lane l of group gr owns query rows gr + NG i (i < 8), of
+// a key tile the keys l + NL j, of dQ the columns 4 l .. 4 l + 3.
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Lanes<D>::NT, 512 / Lanes<D>::NT)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dq, Geom g) {
-  constexpr int DP = D + 1, DC = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;            // [BQ][DP]
-  float* dos = qs + BQ * DP;   // [BQ][DP]
-  float* ks = dos + BQ * DP;   // [BK][DP]
-  float* vs = ks + BK * DP;    // [BK][DP]
-  float* dss = vs + BK * DP;   // [BQ][PS]
+  using L = Lanes<D>;
+  using P = DqPlan<D>;
+  constexpr int NT = L::NT, NL = L::NL, NG = L::NG, LD = L::LD, LK = L::LK;
+  constexpr int BQ = P::BQ, BK = P::BK, NS = D / KC, NR = BK / KC;
+  constexpr int PER_TILE = 2 * NS + NR;
+  extern __shared__ float4 smem4[];
+  float* dss = reinterpret_cast<float*>(smem4);  // [BQ][LD]: P, then dS, of the key tile
+  float* lse_s = dss + BQ * LD;                   // [BQ]
+  float* dl_s = lse_s + BQ;                       // [BQ]
+  float* ring = dl_s + BQ;
+
   const int bh = blockIdx.y, b = bh / g.n_heads, h = bh % g.n_heads;
   const int kvh = h / (g.n_heads / g.n_kv_heads);
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  // the last query tiles see the most keys under a causal mask: launched first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int tid = threadIdx.x, gr = tid / NL, l = tid % NL;
   const size_t q_stride = (size_t)g.n_heads * D, kv_stride = (size_t)g.n_kv_heads * D;
   const size_t q_off = (size_t)b * g.sq * q_stride + (size_t)h * D;
   const size_t kv_off = (size_t)b * g.sk * kv_stride + (size_t)kvh * D;
-  load_tile<D, BQ>(qs, q + q_off, q_stride, q0, g.sq, DP);
-  load_tile<D, BQ>(dos, dout + q_off, q_stride, q0, g.sq, DP);
-  float lse_r[4], dl_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    lse_r[i] = r < g.sq ? lse[(size_t)bh * g.sq + r] : 0.f;
-    dl_r[i] = r < g.sq ? delta[(size_t)bh * g.sq + r] : 0.f;
+  for (int i = tid; i < BQ; i += NT) {
+    const int r = q0 + i;
+    lse_s[i] = r < g.sq ? lse[(size_t)bh * g.sq + r] : 0.f;
+    dl_s[i] = r < g.sq ? delta[(size_t)bh * g.sq + r] : 0.f;
   }
   int k_begin, k_end;
   key_range<BQ, BK>(q0, g, k_begin, k_end);
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // every thread is done with the previous key tile
-    load_tile<D, BK>(ks, k + kv_off, kv_stride, k0, g.sk, DP);
-    load_tile<D, BK>(vs, v + kv_off, kv_stride, k0, g.sk, DP);
-    __syncthreads();
-    probs_and_dscores<D>(qs, dos, ks, vs, nullptr, dss, lse_r, dl_r, q0, k0, g, tx, ty);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float dr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dr[i] = dss[(ty + 16 * i) * PS + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float kk = ks[j * DP + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(dr[i], kk, acc[i][c]);
-      }
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  // stage n: of key tile n / PER_TILE, the d-slices of Q beside K, of dO
+  // beside V, then K by 32 rows
+  auto stage = [=](float* dst, int n) {
+    const int k0 = k_begin + n / PER_TILE * BK;
+    int c = n % PER_TILE;
+    if (c < 2 * NS) {
+      const float* a = c < NS ? q : dout;
+      const float* bm = c < NS ? k : v;
+      c %= NS;
+      copy_rows<BQ, KC, NT>(dst, LK, a + q_off + c * KC, q_stride, q0, g.sq, tid);
+      copy_rows<BK, KC, NT>(dst + BQ * LK, LK, bm + kv_off + c * KC, kv_stride, k0, g.sk, tid);
+    } else {
+      copy_rows<KC, D, NT>(dst, LD, k + kv_off, kv_stride, k0 + (c - 2 * NS) * KC, g.sk, tid);
     }
+  };
+  auto tiles = make_ring<P::STAGE>(ring, stage, n_tiles * PER_TILE);
+  tiles.start();
+
+  float acc[TM][TN], x[TM][TN];
+  zero(acc);
+  const int shift = g.sk - g.sq;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    // S = Q K^T, then P into shared memory, masked entries exact zeros
+    zero(x);
+#pragma unroll 1
+    for (int c = 0; c < NS; ++c) {
+      const float* s = tiles.next();
+      mma_nt<NG, NL, LK, LK>(x, s + gr * LK, s + BQ * LK + l * LK);
+    }
+    const bool whole = all_live(q0, BQ, k0, BK, g.sq, g.sk, g.causal, g.window);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int r = gr + NG * i;
+        const bool ok = whole || live(q0 + r, k0 + l + NL * j, g.sq, g.sk, shift,
+                                           g.causal, g.window);
+        dss[r * LD + l + NL * j] = ok ? expf(x[i][j] * g.scale - lse_s[r]) : 0.f;
+      }
+    // dP = dO V^T, then dS = P (dP - delta) over P, each thread its own entries
+    zero(x);
+#pragma unroll 1
+    for (int c = 0; c < NS; ++c) {
+      const float* s = tiles.next();
+      mma_nt<NG, NL, LK, LK>(x, s + gr * LK, s + BQ * LK + l * LK);
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int r = gr + NG * i, at = r * LD + l + NL * j;
+        dss[at] = dss[at] * (x[i][j] - dl_s[r]);
+      }
+    __syncwarp();
+    // dQ += dS K over the tile's keys, 32 at a time
+#pragma unroll 1
+    for (int c = 0; c < NR; ++c)
+      mma_nn<NG, LD, LD>(acc, dss + gr * LD + c * KC, tiles.next() + 4 * l);
   }
+
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int i = 0; i < TM; ++i) {
+    const int r = q0 + gr + NG * i;
     if (r >= g.sq) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      dq[q_off + (size_t)r * q_stride + tx + 16 * c] = acc[i][c] * g.scale;
+    *reinterpret_cast<float4*>(dq + q_off + (size_t)r * q_stride + 4 * l) =
+        make_float4(acc[i][0] * g.scale, acc[i][1] * g.scale, acc[i][2] * g.scale,
+                    acc[i][3] * g.scale);
   }
 }
 
-// the f32 kernels' shared memory: k, v, q, dO tiles of padded rows, and P
-// and dS (dK/dV) or dS (dQ)
-template <int D>
-constexpr int smem_dkdv = sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * PS);
-template <int D>
-constexpr int smem_dq = sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * PS);
+}  // namespace simt
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, void* dq, void* dk, void* dv, float* delta, int b, int sq,
                int sk, int h, int kh, int causal, int window, float scale, cudaStream_t st) {
+  using KvPlan = simt::DkdvPlan<D>;
+  using QPlan = simt::DqPlan<D>;
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(flash_bwd_dkdv<D>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv<D>)) ||
-      (e = cudaFuncSetAttribute(flash_bwd_dq<D>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq<D>)))
+  if ((e = cudaFuncSetAttribute(simt::flash_bwd_dkdv<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, KvPlan::SMEM)) ||
+      (e = cudaFuncSetAttribute(simt::flash_bwd_dq<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, QPlan::SMEM)))
     return e;
   const Geom g{h, kh, sq, sk, causal, window, scale};
   const float *qt = static_cast<const float*>(q), *kt = static_cast<const float*>(k),
               *vt = static_cast<const float*>(v), *dot = static_cast<const float*>(dout);
   if ((e = static_cast<cudaError_t>(launch_delta<float, D>(o, dout, delta, b, sq, h, st))))
     return e;
-  const dim3 q_grid((sq + BQ - 1) / BQ, b * h), k_grid((sk + BK - 1) / BK, b * kh);
-  flash_bwd_dkdv<D><<<k_grid, NT, smem_dkdv<D>, st>>>(
+  const dim3 k_grid((sk + KvPlan::BK - 1) / KvPlan::BK, b * kh);
+  const dim3 q_grid((sq + QPlan::BQ - 1) / QPlan::BQ, b * h);
+  simt::flash_bwd_dkdv<D><<<k_grid, KvPlan::NT, KvPlan::SMEM, st>>>(
       qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), g);
   if ((e = cudaGetLastError())) return e;
-  flash_bwd_dq<D><<<q_grid, NT, smem_dq<D>, st>>>(qt, kt, vt, dot, lse, delta,
-                                                      static_cast<float*>(dq), g);
+  simt::flash_bwd_dq<D><<<q_grid, f32::Lanes<D>::NT, QPlan::SMEM, st>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), g);
   return cudaGetLastError();
 }
 
@@ -781,19 +846,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 }  // namespace wg
 
-// registers, static and dynamic shared memory and local (spilled) bytes of
-// a kernel, into out[0..3]
-template <class F>
-int attributes(F* fn, int dynamic_smem, int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.sharedSizeBytes;
-  out[2] = dynamic_smem;
-  out[3] = (int)a.localSizeBytes;
-  return cudaSuccess;
-}
+using f32::attributes;
 
 template <int D>
 int info(int dtype, int* out) {
@@ -807,10 +860,11 @@ int info(int dtype, int* out) {
       return e;
     return cudaSuccess;
   }
-  const int tiles[4] = {BK, BQ, BQ, BK};
+  const int tiles[4] = {simt::DkdvPlan<D>::BK, simt::DkdvPlan<D>::BQ, simt::DqPlan<D>::BQ,
+                        simt::DqPlan<D>::BK};
   for (int i = 0; i < 4; ++i) out[i] = tiles[i];
-  if ((e = attributes(flash_bwd_dkdv<D>, smem_dkdv<D>, out + 4)) ||
-      (e = attributes(flash_bwd_dq<D>, smem_dq<D>, out + 8)) ||
+  if ((e = attributes(simt::flash_bwd_dkdv<D>, simt::DkdvPlan<D>::SMEM, out + 4)) ||
+      (e = attributes(simt::flash_bwd_dq<D>, simt::DqPlan<D>::SMEM, out + 8)) ||
       (e = attributes(flash_bwd_delta<float, D>, 0, out + 12)))
     return e;
   return cudaSuccess;

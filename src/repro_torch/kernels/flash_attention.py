@@ -11,7 +11,12 @@ route per dtype and no switch between them:
   second product, as the JAX model's chunked attention rounds it.  TMA
   needs each tensor's address on a 16-byte boundary.
 - ``simt_f32``: f32 inputs in f32 FMA on the CUDA cores, as the TPU kernel
-  computes, one block per (batch * head, 64-query tile).
+  computes, on register tiles (``csrc/flash_f32.cuh``): one block of 2 D
+  threads per (batch * head, 64-query tile), 8 rows x 4 columns of each
+  product a thread, float4 reads of operands that stream through a
+  ``cp.async`` ring in 32-wide slices.  The copies are 16 bytes, so q, k, v
+  (and the backward's dO) must start on 16-byte boundaries; the wrapper
+  copies a view that does not.
 
 Bound on an H100: the bytes of q, k, v and the output once at 3.35 TB/s
 against ``4*B*H*D*(live query-key pairs)`` operations at 989 TFLOP/s (bf16
@@ -32,7 +37,9 @@ rowsum(dO * O) in one pass, then dK and dV a key tile (the GQA group's
 query heads summed in registers) and dQ a query tile.  bf16 inputs run
 ``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma``: every product on the
 tensor cores (``wgmma``) from TMA-loaded bf16 tiles, P and dS rounded to
-bf16 before their products; f32 inputs the SIMT kernels in f32 FMA.  Bound
+bf16 before their products; f32 inputs the register-tiled SIMT kernels in
+f32 FMA (dK/dV by two halves of a block, one making P^T and dV, the other
+dS^T and dK).  Bound
 by 10 * B * H * D * (live pairs) operations.  The serving path asks for no
 lse and its output is the same either way.
 """
@@ -62,6 +69,7 @@ BWD_ROUTES = {torch.float32: "bwd_f32", torch.bfloat16: "bwd_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_attention": ([_P] * 5 + [_I] * 9 + [ctypes.c_float, _P], _I),
+    "flash_attention_info": ([_I, _I, _P], _I),
 }
 _BWD_SIGNATURES = {
     "flash_attention_bwd": ([_P] * 10 + [_I] * 9 + [ctypes.c_float, _P], _I),
@@ -71,6 +79,20 @@ _BWD_SIGNATURES = {
 # reports them
 BWD_KERNELS = {torch.bfloat16: ("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_delta"),
                torch.float32: ("flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_delta")}
+FWD_KERNELS = {torch.bfloat16: "flash_fwd_wgmma", torch.float32: "flash_fwd_f32"}
+# the rows of every f32 kernel's products (8 row groups of 8), as
+# csrc/flash_f32.cuh fixes them; the columns are the head dim
+F32_ROWS = 64
+
+
+def f32_tiles(d: int) -> dict:
+    """Threads a block and the rows of its tiles, of each f32 kernel at
+    head dim ``d``: the forward and dQ a block of ``F32_ROWS`` queries over
+    d-key tiles; dK/dV a block of ``F32_ROWS`` keys over d-query tiles, in
+    two halves of 2 d threads."""
+    return {"fwd": {"threads": 2 * d, "queries": F32_ROWS, "keys": d},
+            "dq": {"threads": 2 * d, "queries": F32_ROWS, "keys": d},
+            "dkdv": {"threads": 4 * d, "keys": F32_ROWS, "queries": d}}
 
 
 def _check_inputs(q, k, v, causal, window) -> None:
@@ -111,10 +133,18 @@ def _check_card(q, k, v, do=None) -> None:
                                  f"loads; it starts at {t.data_ptr():#x}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it does not start on a 16-byte boundary
+    (the f32 kernels' 16-byte ``cp.async`` copies; the bf16 ones refuse such
+    a view in :func:`_check_card`)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _forward(q, k, v, causal, window, *, want_lse: bool = False):
     """Launch the forward kernel of q's dtype on the current stream.  With
     ``want_lse`` it also writes each query row's log-sum-exp, (B, H, Sq) f32,
     and returns (out, lse); the output is the same either way."""
+    q, k, v = (_aligned(t) for t in (q, k, v))
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -180,6 +210,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
         lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
@@ -191,6 +222,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         _build.check(lib, code, "flash_attention_bwd")
     launches[BWD_ROUTES[q.dtype]] += 1
     return dq, dk, dv
+
+
+def kernel_info(dtype: torch.dtype, d: int) -> dict:
+    """The forward's tiles and, from ``cudaFuncGetAttributes``, its kernel's
+    registers, static and dynamic shared memory and local (spilled) bytes,
+    for ``dtype`` at head dim ``d``, on the current device."""
+    out = (ctypes.c_int * 7)()
+    lib = _build.load("flash_attention", _SIGNATURES)
+    _build.check(lib, lib.flash_attention_info(DTYPES[dtype], d, out), "flash_attention_info")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes")
+    return {"tiles": dict(zip(("queries", "keys", "threads"), out[:3])),
+            "kernels": {FWD_KERNELS[dtype]: dict(zip(keys, out[3:7]))}}
 
 
 def bwd_kernel_info(dtype: torch.dtype, d: int) -> dict:

@@ -13,8 +13,9 @@ from repro_torch.core import bottleneck as B  # noqa: E402
 from repro_torch.kernels import launch_counts, ref, reset_launches, tiles  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # noqa: E402
-from repro_torch.kernels.flash_attention import (ROUTES, flash_attention,  # noqa: E402
-                                                 flash_attention_bwd, flash_attention_lse)
+from repro_torch.kernels.flash_attention import (ROUTES, bwd_kernel_info,  # noqa: E402
+                                                 f32_tiles, flash_attention, flash_attention_bwd,
+                                                 flash_attention_lse, kernel_info)
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
 from repro_torch.models.vgg import vgg_cifar  # noqa: E402
@@ -231,7 +232,16 @@ FLASH_SHAPES = [(2, 77, 77, 4, 2, 128, True, None), (1, 200, 200, 8, 2, 128, Tru
                 (1, 2000, 1500, 6, 6, 64, False, None), (1, 260, 130, 4, 2, 128, False, None),
                 (2, 9, 1, 4, 2, 64, False, None),
                 # GQA groups of 16 (qwen3-moe-235b-a22b: H 64 over K 4)
-                (1, 256, 256, 16, 1, 128, True, None), (2, 200, 200, 64, 4, 128, True, None)]
+                (1, 256, 256, 16, 1, 128, True, None), (2, 200, 200, 64, 4, 128, True, None),
+                # the f32 kernels' tile edges (kernels.flash_attention.f32_tiles: 64
+                # rows a block, D keys or queries a tile): Sq and Sk at 64 and D, and
+                # one off either way; a window of 1, windows across a tile edge;
+                # unmasked Sq > Sk; GQA groups of 1 and 3
+                (1, 63, 65, 3, 1, 64, True, None), (1, 65, 129, 2, 2, 128, True, None),
+                (1, 64, 64, 6, 2, 64, True, 1), (1, 128, 128, 6, 2, 128, True, 1),
+                (1, 129, 129, 3, 1, 64, True, 65), (1, 127, 128, 4, 4, 128, True, 129),
+                (1, 129, 127, 3, 1, 128, False, None), (2, 65, 63, 6, 2, 64, False, None),
+                (1, 128, 129, 2, 2, 128, False, 64)]
 # beside the absolute bf16 bar, element by element, one relative to |o|: the
 # kernel rounds each softmax weight and each output to bf16, at most 2**-8
 # of the value each, so |kernel - plain| <= 2**-8 (|o| + P|V|), P|V| the
@@ -326,8 +336,8 @@ def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
     want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(), do,
                                        causal=causal, window=window)
     scales = [float(w.float().abs().max()) for w in want]
-    if sk == 1:
-        # one key: the softmax is constant, so dq and dk are 0 in exact
+    if sk == 1 or window == 1:
+        # one key a row: the softmax is constant, so dq and dk are 0 in exact
         # arithmetic and rounding noise on both sides; held at dv's scale
         scales = [scales[2]] * 3
     assert max(_grad_gap(got, want, scales)) <= bar
@@ -403,6 +413,47 @@ def test_flash_attention_refuses_other_head_dims_and_masked_sq_above_sk(cuda):
     for kw in ({"causal": True}, {"causal": False, "window": 4}):
         with pytest.raises(ValueError, match="Sq 9 > Sk 8"):
             flash_attention(q, kv, kv, **kw)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_no_flash_kernel_spills(cuda, dtype, d):
+    """Every flash kernel of a dtype and head dim keeps its registers
+    (``cudaFuncGetAttributes``: no local bytes); the f32 kernels' tiles are
+    ``f32_tiles``."""
+    dt = getattr(torch, dtype)
+    fwd, bwd = kernel_info(dt, d), bwd_kernel_info(dt, d)
+    for name, attrs in {**fwd["kernels"], **bwd["kernels"]}.items():
+        assert attrs["local_bytes"] == 0, (name, attrs)
+        assert 0 < attrs["registers"] <= 255, (name, attrs)
+    if dt == torch.float32:
+        table = f32_tiles(d)
+        assert fwd["tiles"] == table["fwd"]
+        assert bwd["tiles"] == {"dkdv_keys": table["dkdv"]["keys"],
+                                "dkdv_queries": table["dkdv"]["queries"],
+                                "dq_queries": table["dq"]["queries"], "dq_keys": table["dq"]["keys"]}
+        # 16 resident warps an SM: at most 128 registers a thread
+        assert all(a["registers"] <= 128 for a in {**fwd["kernels"], **bwd["kernels"]}.values())
+
+
+def test_flash_attention_f32_takes_a_view_off_the_16_byte_boundary(cuda):
+    """The f32 kernels copy in 16 bytes: the wrapper copies a view that
+    does not start on a 16-byte boundary, and the results are the aligned
+    call's, bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn((1, 70, 4, 64), generator=g).to(cuda)
+    k, v = (torch.randn((1, 70, 2, 64), generator=g).to(cuda) for _ in range(2))
+    do = torch.randn((1, 70, 4, 64), generator=g).to(cuda)
+    flat = torch.zeros(k.numel() + 1, device=cuda)
+    k_off = flat[1:].view(k.shape)
+    k_off.copy_(k)
+    assert k_off.data_ptr() % 16 == 4
+    want, lse = flash_attention_lse(q, k, v)
+    got, lse_off = flash_attention_lse(q, k_off, v)
+    assert torch.equal(got, want) and torch.equal(lse_off, lse)
+    grads = flash_attention_bwd(q, k, v, want, do, lse)
+    grads_off = flash_attention_bwd(q, k_off, v, want, do, lse)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_off))
 
 
 def test_flash_attention_refuses_a_misaligned_bf16_view(cuda):
