@@ -107,9 +107,12 @@ no install: it puts ``src/`` on the path itself).  Phases:
     whisper-tiny's encoder and cross-attention (Sq 448 and 2000 over 1500
     frames), timed beside SDPA's backward; (Z5b) ``rwkv6_scan_bwd`` the same
     way at Z3's prefill and rwkv6-1.6b's training shape (B 1, S 4096), from
-    a nonzero state with a nonzero final-state gradient (these run right
-    after Z3); (Z24a-c) train llama3.2-3b and rwkv6-1.6b whole in bf16 at
-    train_4k's sequence (batch 1) and whisper-tiny (batch 4, 448 tokens)
+    a nonzero state with a nonzero final-state gradient, each row with the
+    workspace, each of its four kernels' registers, shared memory, resident
+    blocks an SM and local bytes (a spill fails), and one profiled call's
+    time by kernel (these run right after Z3); (Z24a-c) train llama3.2-3b
+    and rwkv6-1.6b whole in bf16 at train_4k's sequence (batch 1) and
+    whisper-tiny (batch 4, 448 tokens)
     through ``make_train_step``, 6 steps on one ``token_batch``, the losses
     finite and falling, every step's launches held to the code's count (each
     kernel's forward twice a layer: the checkpointed group is recomputed in
@@ -2043,10 +2046,34 @@ def check_flash_bwd(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> d
     return e
 
 
+def kernel_ms(fn, names) -> dict:
+    """Device time of each kernel function in ``names`` in one run of ``fn``
+    under ``torch.profiler`` (each profiler name to the longest of ``names``
+    it holds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")  # the window's first kernel can go unrecorded
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        hits = [n for n in names if n in e.name]
+        if e.device_type == DeviceType.CUDA and hits:
+            out[max(hits, key=len)] += (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
 def check_rwkv_bwd(label, b, s, h, d, served_w, gen) -> dict:
     """Z5b: ``rwkv6_scan_bwd`` at one shape, from a nonzero start state with
     nonzero gradients of out and of the final state, against the plain
-    backward and autograd through the plain scan on the card."""
+    backward and autograd through the plain scan on the card; two calls bit
+    for bit equal; the workspace, each kernel's registers, shared memory,
+    resident blocks an SM and local bytes (a kernel that spills fails), and
+    the call's device time split over its kernels (one profiled call)."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     r, k, v = (0.5 * randn(b, s, h, d) for _ in range(3))
@@ -2060,9 +2087,16 @@ def check_rwkv_bwd(label, b, s, h, d, served_w, gen) -> dict:
     dout, dst = randn(b, s, h, d), randn(b, h, d, d)
     ins = (r, k, v, w, u, st)
     got = RS.rwkv6_scan_bwd(*ins, dout, dst)
+    again = RS.rwkv6_scan_bwd(*ins, dout, dst)
     torch.cuda.synchronize()
     if not all(torch.isfinite(g).all() for g in got):
         raise AssertionError(f"rwkv backward at {label}: not finite")
+    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+        raise AssertionError(f"rwkv backward at {label}: two calls differ")
+    del again
+    info = RS.bwd_kernel_info()
+    if any(k_["local_bytes"] for k_ in info["kernels"].values()):
+        raise AssertionError(f"rwkv backward at {label}: a kernel spills: {info}")
     want = ref.rwkv6_scan_bwd_ref(*ins, dout, dst)
     err_ref = grad_gaps(got, want)
     abs_err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
@@ -2087,7 +2121,11 @@ def check_rwkv_bwd(label, b, s, h, d, served_w, gen) -> dict:
     run = lambda: RS.rwkv6_scan_bwd(*ins, dout, dst)  # noqa: E731
     e = {"shape": label, "B": b, "S": s, "H": h, "D": d, "served_w": served_w,
          "rel_err_vs_plain_bwd": err_ref, "rel_err_vs_autograd": err_plain,
-         "max_abs_err": abs_err, "ms": device_ms(run, reps=3), "call_ms": call_ms(run),
+         "max_abs_err": abs_err, "deterministic": True,
+         "workspace_bytes": 4 * RS.bwd_workspace(b, s, h), "sizes": info["sizes"],
+         "kernels": info["kernels"], "chunk_clusters": info["chunk_clusters"],
+         "phase_ms": kernel_ms(run, RS.BWD_KERNELS),
+         "ms": device_ms(run, reps=3), "call_ms": call_ms(run),
          "plain_ms": once_ms(lambda: ref.rwkv6_scan_bwd_ref(*ins, dout, dst)),
          "library_ms": None,
          "forward_ms": device_ms(lambda: RS.rwkv6_scan(r, k, v, w, u, st))}

@@ -25,9 +25,14 @@ The backward (``csrc/rwkv6_scan_bwd.cu``, a library of its own; no TPU
 kernel has one) runs where grad mode is on and an input requires grad: the
 forward then goes through :class:`_Scan`, and its backward launches
 :func:`rwkv6_scan_bwd` for the gradients of r, k, v, w, u and the start
-state from those of out and the final state.  It runs the recurrence
-forwards keeping the state every 16 steps, then the chunks backwards, each
-recomputed from its start, one block per (batch, head, 16 state columns).
+state from those of out and the final state.  It is chunk-parallel in time:
+each chunk of 48 steps gets its own state and gradient from zero and its
+rows' decay product (a block a batch row, head and chunk), a scan over the
+chunks gives each chunk's boundary state and gradient, and each chunk's
+backward runs from those (a block a batch row, head, chunk and 32 state
+columns), its states recomputed 8 steps at a time; the two column groups'
+sums of dr, dk and dw are added in a thread-block cluster, and a last kernel
+adds du's.  Every sum is in a fixed order: two calls give the same bits.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 
 # launches of the CUDA kernels: the forward ("chain") and the backward (a
-# call runs its two kernels); a CPU call launches nothing
+# call runs its four kernels); a CPU call launches nothing
 launches = {"chain": 0, "bwd": 0}
 
 # what the ssm configuration uses: rwkv6-1.6b's head dim
@@ -52,7 +57,10 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "rwkv6_scan_bwd": ([_P] * 15 + [_I] * 4 + [_P], _I),
     "rwkv6_scan_bwd_workspace": ([_I, _I, _I], ctypes.c_longlong),
+    "rwkv6_scan_bwd_info": ([_P], _I),
 }
+# the backward's kernels, in launch order: phases A, B, C and du's sum
+BWD_KERNELS = ("wkv6_bwd_local", "wkv6_bwd_carry", "wkv6_bwd_chunk", "wkv6_bwd_du")
 
 
 def _check_inputs(r, k, v, w, u, state) -> None:
@@ -147,6 +155,34 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.T
         _build.check(lib, code, "rwkv6_scan_bwd")
     launches["bwd"] += 1
     return dr, dk, dv, dw, du, dstate0
+
+
+def bwd_workspace(b: int, s: int, h: int) -> int:
+    """Floats of scratch :func:`rwkv6_scan_bwd` takes at (B, S, H): each
+    chunk's boundary state and gradient, its rows' decay product and its
+    partial of du."""
+    return _build.load("rwkv6_scan_bwd", _BWD_SIGNATURES).rwkv6_scan_bwd_workspace(b, s, h)
+
+
+def bwd_kernel_info() -> dict:
+    """The backward's sizes (steps a chunk and a sub-chunk, state columns a
+    block and a thread) and, from ``cudaFuncGetAttributes`` and the occupancy
+    calculator, each kernel's registers, static and dynamic shared memory,
+    local (spilled) bytes, threads and resident blocks an SM, on the current
+    device; ``chunk_clusters``: the chunk kernel's clusters the device holds
+    at once."""
+    out = (ctypes.c_int * 29)()
+    lib = _build.load("rwkv6_scan_bwd", _BWD_SIGNATURES)
+    _build.check(lib, lib.rwkv6_scan_bwd_info(out), "rwkv6_scan_bwd_info")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "threads",
+            "ctas_per_sm")
+    kernels = {name: dict(zip(keys, out[4 + 6 * m:10 + 6 * m]))
+               for m, name in enumerate(BWD_KERNELS)}
+    for info in kernels.values():
+        info["warps_per_sm"] = info["ctas_per_sm"] * info["threads"] // 32
+    return {"sizes": dict(zip(("chunk", "sub_chunk", "block_columns", "thread_columns"),
+                              out[:4])),
+            "kernels": kernels, "chunk_clusters": out[28]}
 
 
 class _Scan(torch.autograd.Function):

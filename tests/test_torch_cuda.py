@@ -3,6 +3,9 @@ serving path against the port's own CPU path.  Every test here needs an NVIDIA c
 without one; on a machine with a card and no JAX, run
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
 """
+import re
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,7 +20,8 @@ from repro_torch.kernels.flash_attention import (ROUTES, bwd_kernel_info,  # noq
                                                  f32_tiles, flash_attention, flash_attention_bwd,
                                                  flash_attention_lse, kernel_info)
 from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (bwd_workspace, rwkv6_scan,  # noqa: E402
+                                            rwkv6_scan_bwd)
 from repro_torch.models.vgg import vgg_cifar  # noqa: E402
 from repro_torch.runtime.engine import SplitRuntime, run_clients  # noqa: E402
 from repro_torch.configs import SERVED, get_config  # noqa: E402
@@ -497,27 +501,52 @@ def test_rwkv6_scan_matches_plain(cuda, shape):
     assert float((final - want_st).abs().max()) <= 1e-4 * float(want_st.abs().max())
 
 
-@pytest.mark.parametrize("shape", [(2, 1, 3, 64, False), (1, 37, 2, 64, False),
-                                   (2, 300, 4, 64, False), (1, 16, 2, 64, False),
-                                   (2, 53, 3, 64, False), (2, 300, 4, 64, True)])
-def test_rwkv6_scan_backward_matches_plain(cuda, shape):
-    """The gradients of r, k, v, w, u and the start state through the
-    autograd path (the backward kernels), from a nonzero start state and
-    nonzero gradients of out and of the final state, against
-    ``rwkv6_scan_bwd_ref`` and the plain scan's autograd gradients, each
-    within 1e-4 of its max (f32 in another summation order).  S 1, S 16
-    (one whole chunk of the kernel's), ragged S over several chunks."""
-    b, s, h, d, served_w = shape
+# steps a chunk of the rwkv6_scan backward (csrc/rwkv6_scan_bwd.cu), as built
+RWKV_BWD_T = int(re.search(r"constexpr int T = (\d+);", (
+    Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+    / "rwkv6_scan_bwd.cu").read_text()).group(1))
+
+
+def _rwkv_bwd_inputs(b, s, h, d, decays):
+    """r, k, v, w, u, state, dout, dstate on the CPU; ``decays``: sigmoid(N),
+    the served model's (about 0.98), or exp(-exp(N + 1)), whose products
+    over a chunk underflow f32 to 0."""
     g = torch.Generator().manual_seed(s + d + 2)
     r, k, v = (0.5 * torch.randn((b, s, h, d), generator=g) for _ in range(3))
-    if served_w:
+    if decays == "served":
         w = torch.exp(-torch.exp(-4.0 + 0.5 * torch.randn((b, s, h, d), generator=g)))
         u = 0.1 * torch.randn((h, d), generator=g)
+    elif decays == "underflow":
+        w = torch.exp(-torch.exp(1.0 + torch.randn((b, s, h, d), generator=g)))
+        u = 0.3 * torch.randn((h, d), generator=g)
     else:
         w = torch.sigmoid(torch.randn((b, s, h, d), generator=g))
         u = 0.3 * torch.randn((h, d), generator=g)
     st = 0.2 * torch.randn((b, h, d, d), generator=g)
     dout, dst = torch.randn((b, s, h, d), generator=g), torch.randn((b, h, d, d), generator=g)
+    return r, k, v, w, u, st, dout, dst
+
+
+# (b, s, h, d, decays): S 1, S 16, ragged S, the served decays; then B H 1 on
+# either side of the kernel's chunk edge and over two chunks and a tail, the
+# last with decays whose products over a chunk underflow
+@pytest.mark.parametrize("shape", [(2, 1, 3, 64, "sigmoid"), (1, 37, 2, 64, "sigmoid"),
+                                   (2, 300, 4, 64, "sigmoid"), (1, 16, 2, 64, "sigmoid"),
+                                   (2, 53, 3, 64, "sigmoid"), (2, 300, 4, 64, "served"),
+                                   (1, RWKV_BWD_T - 1, 1, 64, "sigmoid"),
+                                   (1, RWKV_BWD_T, 1, 64, "sigmoid"),
+                                   (1, RWKV_BWD_T + 1, 1, 64, "sigmoid"),
+                                   (1, 2 * RWKV_BWD_T + 3, 1, 64, "underflow")])
+def test_rwkv6_scan_backward_matches_plain(cuda, shape):
+    """The gradients of r, k, v, w, u and the start state through the
+    autograd path (the backward kernels), from a nonzero start state and
+    nonzero gradients of out and of the final state, against
+    ``rwkv6_scan_bwd_ref`` and the plain scan's autograd gradients, each
+    within 1e-4 of its max (f32 in another summation order)."""
+    b, s, h, d, decays = shape
+    r, k, v, w, u, st, dout, dst = _rwkv_bwd_inputs(b, s, h, d, decays)
+    if decays == "underflow":
+        assert float(w[:, :RWKV_BWD_T].prod(1).min()) == 0.0
     args = [a.to(cuda).requires_grad_() for a in (r, k, v, w, u, st)]
     dout, dst = dout.to(cuda), dst.to(cuda)
     reset_launches()
@@ -530,6 +559,27 @@ def test_rwkv6_scan_backward_matches_plain(cuda, shape):
     plain_args = [a.detach().requires_grad_() for a in args]
     plain = torch.autograd.grad(ref.rwkv6_scan_ref(*plain_args), plain_args, (dout, dst))
     assert max(_grad_gap(got, plain)) <= 1e-4
+
+
+def test_rwkv6_scan_backward_gives_the_same_bits_twice(cuda):
+    """Every sum of the backward is in a fixed order: two calls agree bit
+    for bit, over several chunks at the served and the underflowing decays."""
+    for decays in ("served", "underflow"):
+        ins = [t.to(cuda) for t in _rwkv_bwd_inputs(2, 3 * RWKV_BWD_T + 7, 3, 64, decays)]
+        first = rwkv6_scan_bwd(*ins)
+        again = rwkv6_scan_bwd(*ins)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_rwkv6_scan_backward_workspace(cuda):
+    """The scratch is each chunk's boundary state and gradient, its rows'
+    decay product and its partial of du, 2 B H nc D (D + 1) floats, and at
+    rwkv6-1.6b's training shape (B 1, S 4096, H 32) under 150 MB."""
+    for b, s, h in ((1, 1, 1), (2, RWKV_BWD_T + 1, 3), (4, 1000, 32), (1, 4096, 32)):
+        nc = -(-s // RWKV_BWD_T)
+        assert bwd_workspace(b, s, h) == 2 * b * h * nc * 64 * 65
+    assert 4 * bwd_workspace(1, 4096, 32) < 150e6
 
 
 def test_rwkv6_scan_refuses_a_view_off_the_16_byte_boundary(cuda):
