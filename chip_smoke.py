@@ -6,9 +6,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments,
 no install: it puts ``src/`` on the path itself).  Phases:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. (Z1) build the seven CUDA kernel libraries from ``src/repro_torch/csrc``
-   (the five forward kernels and the backwards of flash_attention and
-   rwkv6_scan), one nvcc each, all at once;
+2. (Z1) build the eight CUDA kernel libraries from ``src/repro_torch/csrc``
+   (the five forward kernels and the backwards of flash_attention,
+   rwkv6_scan and mamba_scan), one nvcc each, all at once;
 3. hold each bottleneck kernel, on every tile of ``kernels/tiles.py``,
    against its plain PyTorch version on the card at the main path's shapes
    (full-width VGG16, batch 8), N = 1, two ragged N and the llama3.2-3b cut
@@ -52,8 +52,10 @@ no install: it puts ``src/`` on the path itself).  Phases:
 10. (Z6) for each model, a full-width depth-2 f32 copy through the kernels
     on the card against the plain versions on the CPU, same weights;
 11. (Z7) hold ``mamba_scan`` against its plain version at the jamba-v0.1-52b
-    prefill (zero state), a ragged S from a given state, a decode step and
-    the prefill again with the served model's own A;
+    prefill (zero state), a ragged S from a given state, a decode step, the
+    prefill again with the served model's own A and jamba's training shape
+    (B 1, S 4096); (Z7b) ``mamba_scan_bwd`` as Z5b holds ``rwkv6_scan_bwd``,
+    at the training shape, the prefill and the prefill at the served A;
 12. (Z8) serve jamba-v0.1-52b with its dense FFN (``moe=None``; with its
     MoE the whole model does not fit one card: Z21 cuts it) at full width
     and full depth in bf16
@@ -111,18 +113,20 @@ no install: it puts ``src/`` on the path itself).  Phases:
     workspace, each of its four kernels' registers, shared memory, resident
     blocks an SM and local bytes (a spill fails), and one profiled call's
     time by kernel (these run right after Z3); (Z24a-c) train llama3.2-3b
-    and rwkv6-1.6b whole in bf16 at train_4k's sequence (batch 1) and
-    whisper-tiny (batch 4, 448 tokens)
+    and rwkv6-1.6b whole in bf16 at train_4k's sequence (batch 1),
+    whisper-tiny (batch 4, 448 tokens) and jamba-v0.1-52b (``moe=None``) at
+    one 8-layer period, full width, S 4096
     through ``make_train_step``, 6 steps on one ``token_batch``, the losses
     finite and falling, every step's launches held to the code's count (each
     kernel's forward twice a layer: the checkpointed group is recomputed in
     the backward), step ms, tokens a second, init and step peak GB, one step
     under ``device_breakdown``; (Z24d) the loss and every gradient leaf of
-    depth-2 f32 llama and rwkv (B 1, S 512) and whole f32 whisper on the card
-    against the CPU; (Z25) ``Study`` over llama3.2-3b and rwkv6-1.6b whole in
-    bf16 on the card (profile, candidates, simulate, suggest; the profile
+    depth-2 f32 llama and rwkv (B 1, S 512), whole f32 whisper and 8-layer
+    f32 jamba (B 1, S 256) on the card against the CPU; (Z25) ``Study`` over
+    llama3.2-3b, rwkv6-1.6b and jamba-v0.1-52b (``moe=None``) whole in bf16
+    on the card (profile, candidates, simulate, suggest; the profile
     launches each kernel's forward and backward once a layer), and 4-layer
-    f32 copies held to the same study on the CPU;
+    (jamba: 8) f32 copies held to the same study on the CPU;
 14. (Z11) the paper's split-point search on phase 4's VGG16 (the same
     seed): Table I/II from ``core.stats``, held equal to the reference's
     (``VGG16_TOTALS_16``); the Grad-CAM CS curve over the 18 feature ops on
@@ -180,7 +184,7 @@ no install: it puts ``src/`` on the path itself).  Phases:
     Chrome trace's span names; then ``fit`` on a second study, its first
     step replayed on the CPU; each verb's host seconds and peak memory;
 21. print the kernels' launch counts with their errors, times and bounds as
-    one JSON line (the two backward kernels with their training runs'
+    one JSON line (the three backward kernels with their training runs'
     launches), then ``{"ok": true, "device": ...}``.
 
 Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18-Z25, Z11, Z12's training and its
@@ -189,7 +193,7 @@ launch counts set to 0 just before it and read just after; a served run's
 prefill and decode are counted apart as well, and ``flash_attention``'s
 launches by route (``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32
 one; a training step's backward routes, ``bwd_bf16`` or ``bwd_f32``, and
-``rwkv6_scan``'s ``bwd``, apart).  Z11, Z12's training, Z13, Z16 and Z17's
+``rwkv6_scan``'s and ``mamba_scan``'s ``bwd``, apart).  Z11, Z12's training, Z13, Z16 and Z17's
 ``fit`` launch no kernel (VGG16's layers are cuDNN and cuBLAS, and the codec
 wrappers refuse an input that requires grad; the simulator runs the plain
 f32 forward); Z14, Z15 and Z17 launch each codec kernel a number of times
@@ -364,7 +368,8 @@ RWKV_SHAPES = [("rwkv_prefill", 4, 1000, 32, 64, False, False),
 MAMBA_SHAPES = [("jamba_prefill", 4, 2000, 8192, 16, False, False),
                 ("ragged333", 4, 333, 8192, 16, True, False),
                 ("jamba_decode", 4, 1, 8192, 16, True, False),
-                ("served_a", 4, 2000, 8192, 16, False, True)]
+                ("served_a", 4, 2000, 8192, 16, False, True),
+                ("jamba_train", 1, 4096, 8192, 16, False, False)]
 # Z2b: flash_attention's backward (csrc/flash_attention_bwd.cu) at the
 # shapes training gives it: llama3.2-3b's train_4k step (B 1, S 4096), the
 # llama prefill row's shape, window512_d64, whisper-tiny's encoder and its
@@ -391,22 +396,40 @@ FLASH_BWD_BAR = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RWKV_BWD_SHAPES = [("rwkv_prefill", 4, 1000, 32, 64, False),
                    ("rwkv_train", 1, 4096, 32, 64, True)]
 RWKV_BWD_BAR = 1e-4
-# Z24: training whole on one card, bf16, OptConfig() (lr 3e-4, b1 0.9, b2
-# 0.95, clip 1.0, f32 moments, no master copy): TRAIN_STEPS steps on one
+# Z7b: mamba_scan's backward (csrc/mamba_scan_bwd.cu) at jamba-v0.1-52b's
+# train_4k step (B 1, S 4096, d_inner 8192), Z7's prefill and the prefill at
+# the served model's own A, from a nonzero start state with nonzero gradients
+# of y and of the final state: (label, B, S, di, served A); RWKV_BWD_BAR's bar
+MAMBA_BWD_SHAPES = [("jamba_train", 1, 4096, 8192, False),
+                    ("jamba_prefill", 4, 2000, 8192, False),
+                    ("served_a", 4, 2000, 8192, True)]
+MAMBA_BWD_BAR = 1e-4
+# Z5b, Z7b: profiled calls whose median gives each backward kernel's time
+PHASE_RUNS = 3
+# Z24: training on one card, bf16, OptConfig() (lr 3e-4, b1 0.9, b2 0.95,
+# clip 1.0, f32 moments, no master copy): TRAIN_STEPS steps on one
 # data.synthetic.token_batch (seed 0).  train_4k's sequence at batch 1 (its
 # global batch of 256 cut to one card's 1); whisper-tiny at batch 4 over 448
-# text tokens and its 1500 frames (numpy seed FRONT_SEED)
+# text tokens and its 1500 frames (numpy seed FRONT_SEED); jamba-v0.1-52b
+# (moe=None) at full width cut to one period of 8 layers (7 Mamba, 1
+# attention; 2.698 B parameters, 26.98 GB of train state, bf16 weights with f32
+# moments at 10 bytes a parameter; whole, 9.18 B parameters take about 92 GB,
+# more than one card's 80 GB): (arch, layers or None for whole, B, S)
 TRAIN_STEPS = 6
 TRAIN_LR = 3e-4
-TRAIN_RUNS = [("llama3.2-3b", 1, 4096), ("rwkv6-1.6b", 1, 4096), ("whisper-tiny", 4, 448)]
+TRAIN_RUNS = [("llama3.2-3b", None, 1, 4096), ("rwkv6-1.6b", None, 1, 4096),
+              ("whisper-tiny", None, 4, 448), ("jamba-v0.1-52b", 8, 1, 4096)]
 # Z24d: the gradients on the card (kernels) against the CPU (plain
 # versions), f32, same weights and batch: (arch, layers or None for whole,
 # B, S); the loss within 1e-5 relative, every leaf within 1e-4 of its max
 # |g| (a key bias, whose gradient is 0 in exact arithmetic, at its wk's
 # scale) or, as Z4 holds logits, within ULP_FACTOR times the CPU gradient's
 # own response to one rounding at its input (the last bit of every
-# embedding entry flipped), whichever is larger
-GRAD_RUNS = [("llama3.2-3b", 2, 1, 512), ("rwkv6-1.6b", 2, 1, 512), ("whisper-tiny", None, 1, 448)]
+# embedding entry flipped), whichever is larger.  jamba (one 8-layer period
+# at full width) at S 256: its CPU side, the plain Python scan over 7 Mamba
+# layers and 2.7 B f32 weights, twice, took 110 s at S 512
+GRAD_RUNS = [("llama3.2-3b", 2, 1, 512), ("rwkv6-1.6b", 2, 1, 512), ("whisper-tiny", None, 1, 448),
+             ("jamba-v0.1-52b", 8, 1, 256)]
 ZOO_LOSS_RTOL, ZOO_GRAD_RTOL = 1e-5, 1e-4
 # Z25: the Study facade over zoo models on the card, bf16 and whole, and f32
 # copies held to the same study on the CPU: the CS curve within CS_ATOL, the
@@ -415,7 +438,9 @@ ZOO_LOSS_RTOL, ZOO_GRAD_RTOL = 1e-5, 1e-4
 # block's raw map (alpha-weighted, summed over channels of either sign) is
 # printed beside: rwkv's part from the CPU's by 2.6e-4 to 5.1e-4 of max on
 # the card's plain path alone, without a kernel (a diagnostic call, PR 32)
-ZOO_STUDIES = ("llama3.2-3b", "rwkv6-1.6b")
+# jamba-v0.1-52b with moe=None (configs.SERVED), whole in bf16 (18.38 GB);
+# its copy keeps one 8-layer period, since a depth cut holds whole periods
+ZOO_STUDIES = ("llama3.2-3b", "rwkv6-1.6b", "jamba-v0.1-52b")
 ZOO_STUDY_LAYERS = 4
 # its bar, relative to max |plain| of y and of the final state: f32 in
 # another order (fused multiply-adds, the kernel's own sum over d_state in
@@ -2047,24 +2072,27 @@ def check_flash_bwd(label, b, sq, sk, h, kh, d, causal, window, dtype, gen) -> d
 
 
 def kernel_ms(fn, names) -> dict:
-    """Device time of each kernel function in ``names`` in one run of ``fn``
-    under ``torch.profiler`` (each profiler name to the longest of ``names``
-    it holds)."""
+    """Device time of each kernel function in ``names``, which one run of
+    ``fn`` launches once each: the median over ``PHASE_RUNS`` runs under
+    ``torch.profiler`` (each profiler name to the longest of ``names`` it
+    holds).  The window's first kernels can go unrecorded (two of a call's
+    four have gone missing so), which the median rides over."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")  # the window's first kernel can go unrecorded
+        torch.zeros(1, device="cuda")
         torch.cuda.synchronize()
-        fn()
+        for _ in range(PHASE_RUNS):
+            fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
+    times = {n: [] for n in names}
     for e in prof.events():
         hits = [n for n in names if n in e.name]
         if e.device_type == DeviceType.CUDA and hits:
-            out[max(hits, key=len)] += (e.time_range.end - e.time_range.start) / 1e3
-    return out
+            times[max(hits, key=len)].append((e.time_range.end - e.time_range.start) / 1e3)
+    return {n: float(np.median(t)) if t else 0.0 for n, t in times.items()}
 
 
 def check_rwkv_bwd(label, b, s, h, d, served_w, gen) -> dict:
@@ -2140,6 +2168,82 @@ def check_rwkv_bwd(label, b, s, h, d, served_w, gen) -> dict:
     return e
 
 
+def check_mamba_bwd(label, b, s, di, served_a, gen) -> dict:
+    """Z7b: ``mamba_scan_bwd`` at one shape, from a nonzero start state with
+    nonzero gradients of y and of the final state, against the plain
+    backward and autograd through the plain scan on the card; two calls bit
+    for bit equal; the workspace, each kernel's registers, shared memory,
+    resident blocks and warps an SM and local bytes (a kernel that spills
+    fails), and the call's device time split over its kernels (one profiled
+    call)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = (1.0 if served_a else 0.1) * F.softplus(randn(b, s, di))
+    bm, cm = (0.5 * randn(b, s, 16) for _ in range(2))
+    x = randn(b, s, di)
+    if served_a:
+        a = -torch.arange(1, 17, dtype=torch.float32, device="cuda").expand(di, 16).contiguous()
+    else:
+        a = -torch.exp(0.3 * randn(di, 16))
+    st = 0.3 * randn(b, di, 16)
+    dy, dst = randn(b, s, di), randn(b, di, 16)
+    ins = (dt, bm, cm, x, a, st)
+    got = MS.mamba_scan_bwd(*ins, dy, dst)
+    again = MS.mamba_scan_bwd(*ins, dy, dst)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"mamba backward at {label}: not finite")
+    if not all(torch.equal(a_, g) for a_, g in zip(again, got)):
+        raise AssertionError(f"mamba backward at {label}: two calls differ")
+    del again
+    info = MS.bwd_kernel_info()
+    if any(k_["local_bytes"] for k_ in info["kernels"].values()):
+        raise AssertionError(f"mamba backward at {label}: a kernel spills: {info}")
+    want = ref.mamba_scan_bwd_ref(*ins, dy, dst)
+    err_ref = grad_gaps(got, want)
+    abs_err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+    del want
+    live = [t.detach().requires_grad_() for t in ins]
+    plain = torch.autograd.grad(ref.mamba_scan_ref(*live), live, (dy, dst))
+    err_plain = grad_gaps(got, plain)
+    del plain
+    if max(err_ref + err_plain) > MAMBA_BWD_BAR:
+        raise AssertionError(f"mamba backward at {label}: ddt, db, dc, dx, da, dstate off the "
+                             f"plain backward by {err_ref}, off autograd of the plain scan by "
+                             f"{err_plain} of their max (bar {MAMBA_BWD_BAR})")
+    reset_launches()
+    y, final = MS.mamba_scan(*live)
+    via = torch.autograd.grad((y, final), live, (dy, dst))
+    torch.cuda.synchronize()
+    if (not all(torch.equal(a_, g) for a_, g in zip(via, got))
+            or launch_counts()["mamba_scan"] != {"chain": 1, "bwd": 1}):
+        raise AssertionError(f"mamba backward at {label}: the autograd route differs from the "
+                             f"direct call, or launched {launch_counts()['mamba_scan']}")
+    del via, y, final, live
+    run = lambda: MS.mamba_scan_bwd(*ins, dy, dst)  # noqa: E731
+    e = {"shape": label, "B": b, "S": s, "di": di, "ds": 16, "served_a": served_a,
+         "rel_err_vs_plain_bwd": err_ref, "rel_err_vs_autograd": err_plain,
+         "max_abs_err": abs_err, "deterministic": True,
+         "workspace_bytes": 4 * MS.bwd_workspace(b, s, di), "sizes": info["sizes"],
+         "kernels": info["kernels"],
+         "phase_ms": kernel_ms(run, MS.BWD_KERNELS),
+         "ms": device_ms(run, reps=3), "call_ms": call_ms(run),
+         "plain_ms": once_ms(lambda: ref.mamba_scan_bwd_ref(*ins, dy, dst)),
+         "library_ms": None,
+         "forward_ms": device_ms(lambda: MS.mamba_scan(*ins))}
+    e["ms_per_step"] = e["ms"] / s
+    # dt, x, dy read and ddt, dx written; B, C read and dB, dC written; A,
+    # dA and the three states.  19 operations an entry and step (the state
+    # recomputed: dt A, (dt x) B and a h + u; g = C dy + ghat; sums of g B
+    # and of g A a h_{t-1}; a h_{t-1}, g times it, dA's dt times that; dB's g
+    # (dt x) and dC's h dy and their sums over channels; a g); one
+    # exponential an entry and step
+    e["bound_ms"], e["bound_by"] = bound_ms(
+        4 * (5 * b * s * di + 4 * b * s * 16 + 2 * di * 16 + 3 * b * di * 16),
+        19 * b * s * di * 16, exps=b * s * di * 16)
+    return e
+
+
 def train_batch(cfg, b, s, device) -> dict:
     """``data.synthetic.token_batch`` (seed 0) of ``cfg``'s vocab, with the
     stub frontend's N(0, 1) frames or patches (``front_inputs``)."""
@@ -2148,13 +2252,23 @@ def train_batch(cfg, b, s, device) -> dict:
     return {**batch, **front_inputs(cfg, b, device)}
 
 
-def train_zoo(arch, b, s) -> dict:
-    """Z24a-c: ``arch`` whole in bf16 trained TRAIN_STEPS steps on one batch
-    through ``make_train_step`` (AdamW in place, each group recomputed in
-    its backward), every step's launches counted and held to the counts
-    worked out from the code, the losses finite and falling; step times,
-    tokens a second and peak memory; one step under ``device_breakdown``."""
-    cfg = served_cfg(arch)
+def scan_and_flash_launches(cfg, per_fwd) -> dict:
+    """The launches a forward and backward of ``cfg`` under the recompute
+    make, ``{kernel: {route: n}}``: each kernel's forward twice a layer, its
+    backward once (``per_fwd``: a forward's launches)."""
+    fwd = {"flash_attention": FA.ROUTES[cfg.tdtype], "rwkv6_scan": "chain", "mamba_scan": "chain"}
+    bwd = {"flash_attention": FA.BWD_ROUTES[cfg.tdtype], "rwkv6_scan": "bwd", "mamba_scan": "bwd"}
+    return {k: {fwd[k]: 2 * per_fwd[k], bwd[k]: per_fwd[k]} for k in fwd}
+
+
+def train_zoo(arch, n_layers, b, s) -> dict:
+    """Z24: ``arch`` in bf16 (whole, or cut to ``n_layers``) trained
+    TRAIN_STEPS steps on one batch through ``make_train_step`` (AdamW in
+    place, each group recomputed in its backward), every step's launches
+    counted and held to the counts worked out from the code, the losses
+    finite and falling; step times, tokens a second and peak memory; one
+    step under ``device_breakdown``."""
+    cfg = served_cfg(arch) if n_layers is None else served_cfg(arch, n_layers=n_layers)
     oc = OptConfig(lr=TRAIN_LR)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2162,21 +2276,17 @@ def train_zoo(arch, b, s) -> dict:
     t0 = time.perf_counter()
     params, state = init_train_state(0, cfg, oc, device="cuda")
     torch.cuda.synchronize()
-    row = {"arch": arch, "B": b, "S": s, "dtype": cfg.dtype, "lr": TRAIN_LR,
+    row = {"arch": arch, "n_layers": cfg.n_layers, "B": b, "S": s, "dtype": cfg.dtype,
+           "lr": TRAIN_LR,
            "init_s": time.perf_counter() - t0,
            "init_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
            "state_gb": sum(t.numel() * t.element_size()
                            for t in tree_leaves((params, state))) / 1e9}
     batch = train_batch(cfg, b, s, "cuda")
     step = make_train_step(cfg, oc)
-    per_fwd = per_token_launches(cfg)[0]
-    fwd_route = FA.ROUTES[cfg.tdtype]
-    want = {"flash_attention": {fwd_route: 2 * per_fwd["flash_attention"],
-                                FA.BWD_ROUTES[cfg.tdtype]: per_fwd["flash_attention"]},
-            "rwkv6_scan": {"chain": 2 * per_fwd["rwkv6_scan"], "bwd": per_fwd["rwkv6_scan"]}}
+    want = scan_and_flash_launches(cfg, per_token_launches(cfg)[0])
     losses, times, peaks, counts = [], [], [], None
-    total = {k: dict.fromkeys(FA.launches if k == "flash_attention" else RS.launches, 0)
-             for k in want}
+    total = {k: dict.fromkeys(launch_counts()[k], 0) for k in want}
     for i in range(TRAIN_STEPS):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2256,10 +2366,7 @@ def grads_vs_cpu(arch, n_layers, b, s) -> dict:
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     counts = launch_counts()
-    per_fwd = per_token_launches(cfg)[0]
-    want = {"flash_attention": {"simt_f32": 2 * per_fwd["flash_attention"],
-                                "bwd_f32": per_fwd["flash_attention"]},
-            "rwkv6_scan": {"chain": 2 * per_fwd["rwkv6_scan"], "bwd": per_fwd["rwkv6_scan"]}}
+    want = scan_and_flash_launches(cfg, per_token_launches(cfg)[0])
     for kernel, routes in want.items():
         if {r: n for r, n in counts[kernel].items() if n} != {r: n for r, n in routes.items() if n}:
             raise AssertionError(f"Z24d {arch}: {kernel} launched {counts[kernel]}, want {routes}")
@@ -2293,10 +2400,11 @@ def grads_vs_cpu(arch, n_layers, b, s) -> dict:
 
 
 def zoo_study(arch) -> dict:
-    """Z25: ``Study(arch, reduce=False)`` whole in bf16 on the card through
-    profile -> candidates -> simulate -> suggest, each verb timed and its
-    launches counted (profile: one forward and one backward over the view,
-    each kernel once a layer); then an f32 copy cut to ZOO_STUDY_LAYERS on
+    """Z25: ``Study(arch, reduce=False)`` whole in bf16 on the card (``arch``
+    as ``configs.SERVED`` serves it) through profile -> candidates ->
+    simulate -> suggest, each verb timed and its launches counted (profile:
+    one forward and one backward over the view, each kernel once a layer);
+    then an f32 copy cut to ZOO_STUDY_LAYERS (or one period, if longer) on
     the card against the same study on the CPU with the same weights."""
     out, verbs = {"arch": arch}, {}
 
@@ -2313,17 +2421,16 @@ def zoo_study(arch) -> dict:
                                     for k, c in launch_counts().items() if sum(c.values())}}
         return result
 
-    study = timed("Study", lambda: Study(arch, reduce=False, device="cuda"))
+    study = timed("Study", lambda: Study(served_cfg(arch), reduce=False, device="cuda"))
     cfg = study.cfg
     timed("profile", study.profile)
     per_fwd = per_token_launches(cfg)[0]
-    kernel = "rwkv6_scan" if cfg.family == "ssm" else "flash_attention"
-    n = per_fwd[kernel]
-    want = ({"chain": n, "bwd": n} if kernel == "rwkv6_scan"
-            else {FA.ROUTES[cfg.tdtype]: n, FA.BWD_ROUTES[cfg.tdtype]: n})
-    if verbs["profile"]["launches"] != {kernel: want}:
+    # the view's forward and backward: each kernel's forward and backward once a layer
+    routes = {k: dict.fromkeys(c, per_fwd[k])
+              for k, c in scan_and_flash_launches(cfg, per_fwd).items() if per_fwd[k]}
+    if verbs["profile"]["launches"] != routes:
         raise AssertionError(f"Z25 {arch} profile launched {verbs['profile']['launches']}, "
-                             f"want {kernel} {want}")
+                             f"want {routes}")
     if not np.isfinite(study.cs_curve).all():
         raise AssertionError(f"Z25 {arch}: CS curve {study.cs_curve}")
     timed("candidates", study.candidates)
@@ -2333,18 +2440,21 @@ def zoo_study(arch) -> dict:
     # model after), and one more forward for each SC candidate's stages; no
     # verb but profile runs a backward
     n_sc = sum(c.kind == "SC" for c in study.candidate_list)
-    fwd_route = "chain" if kernel == "rwkv6_scan" else FA.ROUTES[cfg.tdtype]
-    if (verbs["simulate"]["launches"] != {kernel: {fwd_route: n * (1 + n_sc)}}
+    fwd_routes = ("chain", FA.ROUTES[cfg.tdtype])
+    fwd_only = {k: {r: n * (1 + n_sc) for r, n in c.items() if r in fwd_routes}
+                for k, c in routes.items()}
+    if (verbs["simulate"]["launches"] != fwd_only
             or verbs["candidates"]["launches"] or verbs["suggest"]["launches"]):
-        raise AssertionError(f"Z25 {arch}: launches {verbs}, want simulate's "
-                             f"{n * (1 + n_sc)} ({n_sc} SC candidates)")
+        raise AssertionError(f"Z25 {arch}: launches {verbs}, want simulate's {fwd_only} "
+                             f"({n_sc} SC candidates)")
     out.update(cs_curve=[float(x) for x in study.cs_curve],
                candidates=[(c.label, c.accuracy_proxy) for c in study.candidate_list],
                suggested=None if best is None else best.candidate.label, verbs=verbs)
     del study
     torch.cuda.empty_cache()
     # the f32 copy, card against CPU: the curve, each block's raw map, labels
-    cfg2 = served_cfg(arch, n_layers=ZOO_STUDY_LAYERS, dtype="float32")
+    n_layers = max(ZOO_STUDY_LAYERS, len(T.block_structure(cfg)[0]))
+    cfg2 = served_cfg(arch, n_layers=n_layers, dtype="float32")
     backbone = T.init_params(0, cfg2, device="cuda")
     card = Study(cfg2, reduce=False, params=backbone, device="cuda").profile().candidates()
     cpu = Study(cfg2, reduce=False, params=to_cpu(backbone), device="cpu").profile().candidates()
@@ -2358,7 +2468,7 @@ def zoo_study(arch) -> dict:
                                         {"tokens": torch.from_numpy(toks).to(dev)},
                                         torch.from_numpy(labels_np).to(dev))
     labels = ([c.label for c in card.candidate_list], [c.label for c in cpu.candidate_list])
-    out["f32_copy"] = {"n_layers": ZOO_STUDY_LAYERS, "cs_rel_err": gap,
+    out["f32_copy"] = {"n_layers": n_layers, "cs_rel_err": gap,
                        "cs_curve": [float(x) for x in cpu.cs_curve],
                        "map_rel_err": grad_gaps([m.cpu() for m in maps["cuda"]], maps["cpu"]),
                        "labels": labels[0],
@@ -2394,7 +2504,7 @@ def top2_margin(logits: torch.Tensor) -> torch.Tensor:
 # the zoo kernels' device function names, as the profiler reports them
 ZOO_KERNEL_NAMES = {"flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd",
                     "rwkv6_scan": "wkv6", "rwkv6_scan_bwd": "wkv6_bwd",
-                    "mamba_scan": "selective_scan"}
+                    "mamba_scan": "selective_scan", "mamba_scan_bwd": "mamba_bwd"}
 # the flash kernels one by one (each device name to the longest it holds)
 FLASH_KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd", "flash_bwd_delta", "flash_bwd_dkdv_wgmma",
                       "flash_bwd_dq_wgmma", "flash_bwd_dkdv", "flash_bwd_dq")
@@ -3047,8 +3157,8 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "warpgroup",
                                        "wgmma")):
                 print(f"  {name}: {line.strip()}")
-        if name.startswith("bottleneck_") or name in ("mamba_scan", "rwkv6_scan",
-                                                      "rwkv6_scan_bwd"):
+        if name.startswith("bottleneck_") or name in ("mamba_scan", "mamba_scan_bwd",
+                                                      "rwkv6_scan", "rwkv6_scan_bwd"):
             check_ptxas(name, log)
 
     # phase 3
@@ -3105,12 +3215,19 @@ def main() -> int:
         print("Z5b rwkv6_scan_bwd", json.dumps(rwkv_bwd_rows[-1]), flush=True)
         torch.cuda.empty_cache()
     print(f"Z2b, Z5b took {time.perf_counter() - t0:.1f} s", flush=True)
-    # Z7
+    # Z7, Z7b: mamba_scan and its backward against their plain versions
     mamba_rows = []
     for label, *shape in MAMBA_SHAPES:
         mamba_rows.append(check_mamba(label, *shape, gen))
         print("mamba_scan", json.dumps(mamba_rows[-1]), flush=True)
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mamba_bwd_rows = []
+    for label, *shape in MAMBA_BWD_SHAPES:
+        mamba_bwd_rows.append(check_mamba_bwd(label, *shape, gen))
+        print("Z7b mamba_scan_bwd", json.dumps(mamba_bwd_rows[-1]), flush=True)
+        torch.cuda.empty_cache()
+    print(f"Z7b took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Z4, Z5, Z8: full-width, full-depth serving, counted; then each served
     # run again in f32 (Z9 for jamba), held to the f32 bar; Z6, Z10: kernels
@@ -3195,13 +3312,14 @@ def main() -> int:
             batched[f"{arch} {dtype}"] = row = batcher_run(arch, prompts, dtype)
             print(f"Z23 batcher {arch} {dtype}", json.dumps(row), flush=True)
     print(f"Z23 took {time.perf_counter() - t0:.1f} s", flush=True)
-    # Z24: llama3.2-3b, rwkv6-1.6b and whisper-tiny trained whole in bf16;
+    # Z24: llama3.2-3b, rwkv6-1.6b and whisper-tiny trained whole in bf16,
+    # jamba-v0.1-52b at one period;
     # Z24d: f32 copies' gradients on the card against the CPU; Z25: the Study
     # facade over zoo models on the card
     trained = {}
-    for arch, b, s in TRAIN_RUNS:
+    for arch, n_layers, b, s in TRAIN_RUNS:
         t0 = time.perf_counter()
-        trained[arch] = train_zoo(arch, b, s)
+        trained[arch] = train_zoo(arch, n_layers, b, s)
         print(f"Z24 trained {arch}", json.dumps(trained[arch]), flush=True)
         print(f"Z24 {arch} took {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -3345,6 +3463,8 @@ def main() -> int:
                   "llama3.2-3b", "src/repro/kernels/flash_attention.py:86"),
         bwd_entry("rwkv6_scan_bwd", "rwkv6_scan", rwkv_bwd_rows, "rwkv_train", "rwkv6-1.6b",
                   "src/repro/kernels/rwkv6_scan.py:56"),
+        bwd_entry("mamba_scan_bwd", "mamba_scan", mamba_bwd_rows, "jamba_train", JAMBA,
+                  "src/repro/kernels/mamba_scan.py:55"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

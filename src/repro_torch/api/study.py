@@ -57,10 +57,9 @@ host without CUDA it raises unless the caller asks for ``"cpu"``).  On the
 card no verb falls back to the CPU or to a kernel's plain version: the
 codec kernels run wherever an AE cut is calibrated or deployed, and a zoo
 study's :meth:`profile` differentiates through the view, so its backward
-runs through ``flash_attention``'s and ``rwkv6_scan``'s backward kernels.
-That holds for every family without Mamba layers; a hybrid (jamba) view's
-profile raises on the card at its first Mamba layer (``mamba_scan`` has no
-backward yet, ROADMAP A17c) and runs on the CPU.  The kernels take head
+runs through the backward kernels of ``flash_attention``, ``rwkv6_scan``
+and, for a hybrid (jamba) view's Mamba layers, ``mamba_scan``: every
+family profiles on the card.  The kernels take head
 dims 64 and 128 (rwkv: 64), and ``reduced()`` configs have 32, so a zoo
 study on the card is built with ``reduce=False``: the config as given
 (whole, or a depth cut of it made with ``dataclasses.replace``).

@@ -17,10 +17,9 @@ Generalized Grad-CAM over a :class:`LayeredModel`:
 Candidate split points = plateau-tolerant local maxima of CS restricted to
 legal cut points.  The backward pass goes through PyTorch's own ops (cuDNN
 convolutions, ``addmm``) and, over a zoo view on the card, through the
-backward kernels of ``flash_attention`` and ``rwkv6_scan`` (a Mamba
-layer's ``mamba_scan`` has none yet and raises there: ROADMAP A17c).  The
-parameters should not require grad, or the pass also computes their
-gradients.
+backward kernels of ``flash_attention``, ``rwkv6_scan`` and (a Mamba
+layer's) ``mamba_scan``.  The parameters should not require grad, or the
+pass also computes their gradients.
 """
 from __future__ import annotations
 

@@ -50,6 +50,7 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
 #include "kernel_error.cuh"
 
 namespace {
@@ -72,31 +73,6 @@ struct Stage {
   float b[T][DS];
   float c[T][DS];
 };
-
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// BYTES from src to dst, or BYTES zeros where !valid (src is then not read)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src),
-                 "r"(valid ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(to), "l"(src),
-                 "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // steps [t0, t0 + n) into st: dt and x of the block's channels from dtb and
 // xb (their (t = 0, d0) elements; live_cols of the CPB columns lie inside
@@ -224,8 +200,6 @@ selective_scan(const float* __restrict__ dt, const float* __restrict__ bm,
     for (int i = 0; i < E; ++i) state1[((size_t)b * di + d) * DS + q * E + i] = h[i];
   }
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 

@@ -60,6 +60,7 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
 #include "kernel_error.cuh"
 
 namespace {
@@ -83,18 +84,6 @@ struct __align__(16) Stage {
   float a[T];  // a_t = sum_i r_i (u_i k_i)
 };
 constexpr size_t SMEM = NS * sizeof(Stage);
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __host__ __device__ constexpr int ilog2(int x) { return x > 1 ? 1 + ilog2(x / 2) : 0; }
 
@@ -276,19 +265,10 @@ wkv6(const float* __restrict__ r, const float* __restrict__ k, const float* __re
   }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 // raise wkv6's dynamic shared-memory limit to SMEM, once for each device
 cudaError_t allow_smem() {
-  static std::atomic<uint64_t> done{0};  // a bit a device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(wkv6, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return e;
+  static std::atomic<uint64_t> done{0};
+  return once_per_device(done, [] { return allow_dynamic_smem(wkv6, SMEM); });
 }
 
 }  // namespace

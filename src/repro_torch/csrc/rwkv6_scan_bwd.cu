@@ -79,7 +79,9 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
 #include "kernel_error.cuh"
+#include "warp_scatter.cuh"
 
 namespace coop = cooperative_groups;
 
@@ -127,15 +129,6 @@ struct __align__(16) ChunkSmem {
 constexpr size_t SMEM_LOCAL = sizeof(Chunk<D>);
 constexpr size_t SMEM_CHUNK = sizeof(ChunkSmem);
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 template <int K>
 __device__ __forceinline__ void load_cols(float (&x)[K], const float* p) {
 #pragma unroll
@@ -181,62 +174,6 @@ __device__ void load_chunk(Chunk<NC>& ch, const float* __restrict__ r,
   }
   cp_async_wait_all();
   __syncthreads();  // every thread's copies and fills are in
-}
-
-// one halving of a reduce-scatter: lanes whose bit DIST is set keep the upper
-// HALF of their first 2 HALF values, the others the lower, each adding its
-// partner's
-template <int HALF, int DIST, int K>
-__device__ __forceinline__ void halve(float (&x)[K], int lane) {
-  const bool hi = lane & DIST;
-#pragma unroll
-  for (int m = 0; m < HALF; ++m) {
-    const float send = hi ? x[m] : x[m + HALF];
-    const float keep = hi ? x[m + HALF] : x[m];
-    x[m] = keep + __shfl_xor_sync(FULL, send, DIST);
-  }
-}
-
-// x[0, N) summed over the lanes that differ in bits DIST, DIST / 2, .., LO:
-// a halving a bit while a lane holds more than one value, then whole adds
-template <int N, int DIST, int LO, int K>
-__device__ __forceinline__ void scatter(float (&x)[K], int lane) {
-  if constexpr (DIST >= LO && DIST > 0) {
-    if constexpr (N > 1) {
-      halve<N / 2, DIST>(x, lane);
-      scatter<N / 2, DIST / 2, LO>(x, lane);
-    } else {
-      x[0] += __shfl_xor_sync(FULL, x[0], DIST);
-      scatter<1, DIST / 2, LO>(x, lane);
-    }
-  }
-}
-
-// values a lane holds after scatter<N, DIST, LO>
-template <int N, int DIST, int LO>
-__host__ __device__ constexpr int scatter_left() {
-  if constexpr (DIST >= LO && DIST > 0 && N > 1) return scatter_left<N / 2, DIST / 2, LO>();
-  else return N;
-}
-
-// the index, among the N, of a lane's first value after scatter<N, DIST, LO>
-template <int N, int DIST, int LO>
-__device__ __forceinline__ int scatter_first(int lane) {
-  if constexpr (DIST >= LO && DIST > 0 && N > 1)
-    return (lane & DIST ? N / 2 : 0) + scatter_first<N / 2, DIST / 2, LO>(lane);
-  else return 0;
-}
-
-// whether a lane stores its values: of the lanes a whole add left equal, the
-// one with those bits clear
-template <int N, int DIST, int LO>
-__device__ __forceinline__ bool scatter_owner(int lane) {
-  if constexpr (DIST >= LO && DIST > 0) {
-    if constexpr (N > 1) return scatter_owner<N / 2, DIST / 2, LO>(lane);
-    else return !(lane & DIST) && scatter_owner<1, DIST / 2, LO>(lane);
-  } else {
-    return true;
-  }
 }
 
 // phase A, a CTA a (batch, head, chunk).  With k~_t = k_t prod_{t' > t} w_t'
@@ -528,41 +465,16 @@ __global__ void wkv6_bwd_du(const float* __restrict__ du_part, float* __restrict
   du[e] = acc;
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 // raise A's and C's dynamic shared-memory limits, once for each device
 cudaError_t allow_smem() {
-  static std::atomic<uint64_t> done{0};  // a bit a device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(wkv6_bwd_local, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)SMEM_LOCAL);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(wkv6_bwd_chunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SMEM_CHUNK);
-  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return e;
+  static std::atomic<uint64_t> done{0};
+  return once_per_device(done, [] {
+    const cudaError_t e = allow_dynamic_smem(wkv6_bwd_local, SMEM_LOCAL);
+    return e ? e : allow_dynamic_smem(wkv6_bwd_chunk, SMEM_CHUNK);
+  });
 }
 
 constexpr int CARRY_THREADS = 256, DU_THREADS = 128;
-
-// registers, static and dynamic shared memory, local (spilled) bytes,
-// threads and resident CTAs an SM of one kernel, into out[0..5]
-template <class F>
-cudaError_t attributes(F* fn, int threads, size_t dynamic_smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return e;
-  int ctas = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads, dynamic_smem);
-  if (e != cudaSuccess) return e;
-  out[0] = a.numRegs, out[1] = (int)a.sharedSizeBytes, out[2] = (int)dynamic_smem;
-  out[3] = (int)a.localSizeBytes, out[4] = threads, out[5] = ctas;
-  return cudaSuccess;
-}
 
 }  // namespace
 

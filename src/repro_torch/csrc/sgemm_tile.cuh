@@ -34,6 +34,7 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
 #include "kernel_error.cuh"
 
 namespace sei {
@@ -104,29 +105,6 @@ int with_tile(int tile, F f) {
 }
 
 // ---------------------------------------------------------------- copies
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// BYTES from src to dst, or BYTES zeros where !valid (src is then not read)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "n"(BYTES), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // rows x cols elements of T from src (row stride ld, origin (r0, c0), bounds
 // nr x nc) into dst (row stride dst_ld), in BYTES-wide copies.  BYTES = 1 is

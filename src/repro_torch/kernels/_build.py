@@ -23,7 +23,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("bottleneck_compress", "bottleneck_decompress", "flash_attention",
-           "flash_attention_bwd", "mamba_scan", "rwkv6_scan", "rwkv6_scan_bwd")
+           "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd", "rwkv6_scan",
+           "rwkv6_scan_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -98,6 +99,26 @@ def check(lib, code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}: "
                            f"{lib.kernel_error_string(abs(code)).decode()}")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on a 16-byte boundary (a copy where it is not),
+    for a kernel's 16-byte copies."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def kernel_attributes(out, names) -> dict:
+    """Each kernel's registers, static and dynamic shared memory, local
+    (spilled) bytes, threads, resident blocks and warps an SM, from the six
+    ints a kernel that a library's ``*_info`` call wrote after its four sizes
+    (``out[4 + 6 m:10 + 6 m]`` for the kernel ``names[m]``)."""
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "threads",
+            "ctas_per_sm")
+    kernels = {name: dict(zip(keys, out[4 + 6 * m:10 + 6 * m])) for m, name in enumerate(names)}
+    for info in kernels.values():
+        info["warps_per_sm"] = info["ctas_per_sm"] * info["threads"] // 32
+    return kernels
 
 
 # why the codec kernels have no backward

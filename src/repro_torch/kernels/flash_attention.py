@@ -133,18 +133,11 @@ def _check_card(q, k, v, do=None) -> None:
                                  f"loads; it starts at {t.data_ptr():#x}")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it where it does not start on a 16-byte boundary
-    (the f32 kernels' 16-byte ``cp.async`` copies; the bf16 ones refuse such
-    a view in :func:`_check_card`)."""
-    return t.clone() if t.data_ptr() % 16 else t
-
-
 def _forward(q, k, v, causal, window, *, want_lse: bool = False):
     """Launch the forward kernel of q's dtype on the current stream.  With
     ``want_lse`` it also writes each query row's log-sum-exp, (B, H, Sq) f32,
     and returns (out, lse); the output is the same either way."""
-    q, k, v = (_aligned(t) for t in (q, k, v))
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -210,7 +203,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    q, k, v, do = (_build.aligned(t) for t in (q, k, v, do))
     delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
         lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)

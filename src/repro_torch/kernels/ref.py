@@ -2,9 +2,9 @@
 ``repro/kernels/ref.py``: the bottleneck oracles at ``:33-59``,
 ``flash_attention_ref`` at ``:11``, ``rwkv6_scan_ref`` at ``:62`` and
 ``mamba_scan_ref`` at ``:79``), of the row log-sum-exp the flash forward
-keeps for its backward (``flash_attention_lse_ref``), and of the two
-backward kernels, which have no reference twin: ``flash_attention_bwd_ref``
-and ``rwkv6_scan_bwd_ref``.
+keeps for its backward (``flash_attention_lse_ref``), and of the three
+backward kernels, which have no reference twin: ``flash_attention_bwd_ref``,
+``rwkv6_scan_bwd_ref`` and ``mamba_scan_bwd_ref``.
 
 The kernel wrappers use them for tensors on the CPU, the tests hold them
 against the JAX package's Pallas kernels, and ``chip_smoke.py`` holds the
@@ -206,6 +206,44 @@ def mamba_scan_ref(dt, b, c, x, a, state):
         h = da * h + (dt_t * x_t)[..., None] * b_t[:, None, :]
         ys.append(torch.einsum("bds,bs->bd", h, c_t))
     return torch.stack(ys, dim=1), h
+
+
+def mamba_scan_bwd_ref(dt, b, c, x, a, state, dy, dstate) -> tuple:
+    """The gradient of :func:`mamba_scan_ref` with respect to (dt, b, c, x,
+    a, state), given those of its two outputs, ``dy`` (B, S, di) and
+    ``dstate`` (B, di, ds): the states h_0 .. h_S kept from a forward loop
+    (h_0 the given one), then, with a_t = exp(dt_t A) and g the gradient of
+    the state after step t, from g = dstate + C_S dy_S backwards::
+
+        dx_t  = dt_t sum_n g B_t
+        ddt_t = sum_n g (x_t B_t + A a_t h_{t-1})
+        dB_t  = sum_d g dt_t x_t          dC_t = sum_d h_t dy_t
+        dA   += sum_b g dt_t a_t h_{t-1}
+        g    <- C_{t-1} dy_{t-1} + a_t g
+
+    with steps counted from 1; the start state's gradient is a_1 g_1.
+    """
+    states = [state]
+    for t in range(dt.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * a)
+        states.append(da * states[-1] + (dt[:, t] * x[:, t])[..., None] * b[:, t, None, :])
+    grads = {name: torch.empty_like(t) for name, t in (("dt", dt), ("b", b), ("c", c),
+                                                        ("x", x))}
+    da_sum = torch.zeros_like(a)
+    carry = dstate                                   # dL/dh_t from the steps after t
+    for t in range(dt.shape[1] - 1, -1, -1):
+        dt_t, b_t, c_t, x_t, dy_t = dt[:, t], b[:, t], c[:, t], x[:, t], dy[:, t]
+        at = torch.exp(dt_t[..., None] * a)                          # (B, di, ds)
+        g = c_t[:, None, :] * dy_t[..., None] + carry
+        gb = (g * b_t[:, None, :]).sum(-1)                           # (B, di)
+        gah = g * at * states[t]                                     # g a_t h_{t-1}
+        grads["x"][:, t] = dt_t * gb
+        grads["dt"][:, t] = x_t * gb + (gah * a).sum(-1)
+        grads["b"][:, t] = torch.einsum("bdn,bd->bn", g, dt_t * x_t)
+        grads["c"][:, t] = torch.einsum("bdn,bd->bn", states[t + 1], dy_t)
+        da_sum = da_sum + (gah * dt_t[..., None]).sum(0)
+        carry = at * g
+    return grads["dt"], grads["b"], grads["c"], grads["x"], da_sum, carry
 
 
 def bottleneck_compress_ref(f, w, b, *, scale: float = 127.0):

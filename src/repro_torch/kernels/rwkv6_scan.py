@@ -114,12 +114,6 @@ def _forward(r, k, v, w, u, state) -> tuple:
     return out, final
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and on a 16-byte boundary (a copy where it is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                    u: torch.Tensor, state: torch.Tensor, dout: torch.Tensor,
                    dstate: torch.Tensor) -> tuple:
@@ -137,7 +131,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.T
         return rwkv6_scan_bwd_ref(r, k, v, w, u, state, dout, dstate)
     _check_card(r, k, v, w, u)
     b, s, h, d = r.shape
-    state, dout, dstate = _aligned(state), _aligned(dout), _aligned(dstate)
+    state, dout, dstate = _build.aligned(state), _build.aligned(dout), _build.aligned(dstate)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty_like(u)
     dstate0 = torch.empty_like(state)
@@ -174,15 +168,9 @@ def bwd_kernel_info() -> dict:
     out = (ctypes.c_int * 29)()
     lib = _build.load("rwkv6_scan_bwd", _BWD_SIGNATURES)
     _build.check(lib, lib.rwkv6_scan_bwd_info(out), "rwkv6_scan_bwd_info")
-    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes", "threads",
-            "ctas_per_sm")
-    kernels = {name: dict(zip(keys, out[4 + 6 * m:10 + 6 * m]))
-               for m, name in enumerate(BWD_KERNELS)}
-    for info in kernels.values():
-        info["warps_per_sm"] = info["ctas_per_sm"] * info["threads"] // 32
     return {"sizes": dict(zip(("chunk", "sub_chunk", "block_columns", "thread_columns"),
                               out[:4])),
-            "kernels": kernels, "chunk_clusters": out[28]}
+            "kernels": _build.kernel_attributes(out, BWD_KERNELS), "chunk_clusters": out[28]}
 
 
 class _Scan(torch.autograd.Function):

@@ -19,7 +19,8 @@ from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # n
 from repro_torch.kernels.flash_attention import (ROUTES, bwd_kernel_info,  # noqa: E402
                                                  f32_tiles, flash_attention, flash_attention_bwd,
                                                  flash_attention_lse, kernel_info)
-from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+from repro_torch.kernels import mamba_scan as MS  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import (bwd_workspace, rwkv6_scan,  # noqa: E402
                                             rwkv6_scan_bwd)
 from repro_torch.models.vgg import vgg_cifar  # noqa: E402
@@ -151,17 +152,19 @@ def _plain_backward(name, inputs, outs, cots):
     input, given the kernel's outputs ``outs`` and their cotangents."""
     if name == "flash_attention":
         return ref.flash_attention_bwd_ref(*inputs, outs[0], cots[0], causal=True, window=None)
+    if name == "mamba_scan":
+        return ref.mamba_scan_bwd_ref(*inputs, *cots)
     return ref.rwkv6_scan_bwd_ref(*inputs, *cots)
 
 
 def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
     """A kernel with no backward returns a fresh tensor with no grad_fn: a
-    gradient through it would come back as zero.  The codec and
-    ``mamba_scan`` wrappers raise instead, launching nothing, while grad
-    mode is on and an input requires grad; under ``no_grad`` the same call
-    launches.  ``flash_attention`` and ``rwkv6_scan`` have backward kernels:
-    with any one input requiring grad they launch forward and backward once
-    each, and the gradient equals the plain backward's."""
+    gradient through it would come back as zero.  The codec wrappers raise
+    instead, launching nothing, while grad mode is on and an input requires
+    grad; under ``no_grad`` the same call launches.  ``flash_attention``,
+    ``rwkv6_scan`` and ``mamba_scan`` have backward kernels: with any one
+    input requiring grad they launch forward and backward once each, and the
+    gradient equals the plain backward's."""
     for name, (call, inputs) in _kernel_calls(cuda).items():
         for i, t in enumerate(inputs):
             if not t.is_floating_point():
@@ -169,7 +172,7 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
             args = [a.requires_grad_() if j == i else a for j, a in enumerate(
                 [x.detach().clone() for x in inputs])]
             reset_launches()
-            if name in ("flash_attention", "rwkv6_scan"):
+            if name in ("flash_attention", "rwkv6_scan", "mamba_scan"):
                 outs = call(*args)
                 outs = outs if isinstance(outs, tuple) else (outs,)
                 cots = _cotangents(outs)
@@ -190,9 +193,6 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
                 call(*args)
             torch.cuda.synchronize()
             assert sum(launch_counts()[name].values()) == 1, (name, i)
-    call, inputs = _kernel_calls(cuda)["mamba_scan"]
-    with pytest.raises(RuntimeError, match="A17c"):
-        call(*[inputs[0].clone().requires_grad_(), *inputs[1:]])
 
 
 def test_split_runtime_on_the_card_matches_the_cpu_path(cuda):
@@ -624,6 +624,66 @@ def test_mamba_scan_matches_plain(cuda, shape):
     assert float((final - want_st).abs().max()) <= 1e-5 * float(want_st.abs().max())
 
 
+MAMBA_BWD_T = int(re.search(r"constexpr int T = (\d+);", (
+    Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+    / "mamba_scan_bwd.cu").read_text()).group(1))
+
+
+def _mamba_bwd_inputs(b, s, di, served_a):
+    """dt, b, c, x, a, state, dy, dstate on the CPU, as chip_smoke.py's Z7b
+    draws them."""
+    g = torch.Generator().manual_seed(s + di + 5)
+    dt = (1.0 if served_a else 0.1) * torch.nn.functional.softplus(
+        torch.randn((b, s, di), generator=g))
+    bm, cm = (0.5 * torch.randn((b, s, 16), generator=g) for _ in range(2))
+    x = torch.randn((b, s, di), generator=g)
+    if served_a:
+        a = -torch.arange(1, 17, dtype=torch.float32).expand(di, 16).contiguous()
+    else:
+        a = -torch.exp(0.3 * torch.randn((di, 16), generator=g))
+    st = 0.3 * torch.randn((b, di, 16), generator=g)
+    dy, dst = torch.randn((b, s, di), generator=g), torch.randn((b, di, 16), generator=g)
+    return dt, bm, cm, x, a, st, dy, dst
+
+
+# b, s, di, served A: S 1; either side of the kernel's chunk edge and two
+# chunks and a tail; di not a multiple of a block's 64 channels, and not of 4
+# (the 4-byte copies); the served model's own A, where |dt A| reaches 10-20
+@pytest.mark.parametrize("shape", [(2, 1, 256, False), (1, MAMBA_BWD_T - 1, 64, False),
+                                   (1, MAMBA_BWD_T, 100, False), (2, MAMBA_BWD_T + 1, 70, True),
+                                   (2, 2 * MAMBA_BWD_T + 5, 333, False), (3, 300, 1000, True),
+                                   (1, 513, 8192, False)])
+def test_mamba_scan_backward_matches_plain(cuda, shape):
+    """The gradients of dt, B, C, x, A and the start state through the
+    autograd path (the backward kernels), from a nonzero start state and
+    nonzero gradients of y and of the final state, against
+    ``mamba_scan_bwd_ref`` and the plain scan's autograd gradients, each
+    within 1e-4 of its max (f32 in another summation order); two calls of
+    the backward agree bit for bit."""
+    ins = [t.to(cuda) for t in _mamba_bwd_inputs(*shape)]
+    args = [a.clone().requires_grad_() for a in ins[:6]]
+    reset_launches()
+    y, final = mamba_scan(*args)
+    got = torch.autograd.grad((y, final), args, tuple(ins[6:]))
+    torch.cuda.synchronize()
+    assert launch_counts()["mamba_scan"] == {"chain": 1, "bwd": 1}
+    want = ref.mamba_scan_bwd_ref(*ins)
+    assert max(_grad_gap(got, want)) <= 1e-4
+    plain_args = [a.detach().requires_grad_() for a in args]
+    plain = torch.autograd.grad(ref.mamba_scan_ref(*plain_args), plain_args, tuple(ins[6:]))
+    assert max(_grad_gap(got, plain)) <= 1e-4
+    again = mamba_scan_bwd(*ins)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_mamba_scan_backward_spills_nothing_and_fills_the_card(cuda):
+    """No kernel of the backward spills, and the chunk kernel keeps 16 warps
+    an SM."""
+    info = MS.bwd_kernel_info()
+    assert not any(k["local_bytes"] for k in info["kernels"].values()), info
+    assert info["kernels"]["mamba_bwd_chunk"]["warps_per_sm"] >= 16, info
+
+
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-1.6b", "jamba-v0.1-52b",
                                   "deepseek-moe-16b", "whisper-tiny", "internvl2-76b",
                                   "qwen3-moe-235b-a22b"])
@@ -790,10 +850,12 @@ def test_zoo_train_step_on_the_card_matches_the_cpu_path(cuda, arch):
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
 
 
-def test_hybrid_train_step_on_the_card_raises_at_its_first_mamba_layer(cuda):
-    """jamba's Mamba mixers have no backward kernel yet (ROADMAP A17c): its
-    training step on the card raises at its first Mamba layer, naming the
-    item, and launches nothing."""
+def test_hybrid_train_step_on_the_card_matches_the_cpu_path(cuda):
+    """jamba (``moe=None``, one 8-layer period: 7 Mamba mixers and one
+    attention layer, reduced width at head dim 128) as the test above holds
+    the other families: the loss and every gradient through the kernels
+    (each forward launched twice under the recompute, each backward once)
+    against the plain versions on the CPU, then a ``make_train_step`` step."""
     import dataclasses
     from repro_torch.training.optimizer import OptConfig, adamw_init
     from repro_torch.training.train import make_train_step
@@ -801,9 +863,30 @@ def test_hybrid_train_step_on_the_card_raises_at_its_first_mamba_layer(cuda):
     cfg = dataclasses.replace(reduced(get_config(arch), head_dim=get_config(arch).hd),
                               dtype="float32", **SERVED[arch])
     assert T.block_structure(cfg)[0][0].mixer == "mamba"
-    params = T.init_params(0, cfg, device=cuda)
-    oc = OptConfig()
+    params_cpu = T.init_params(0, cfg, device="cpu")
+    params = _to(params_cpu, cuda)
+    batch_cpu, batch = _train_batch(cfg, "cpu"), _train_batch(cfg, cuda)
     reset_launches()
-    with pytest.raises(RuntimeError, match="A17c"):
-        make_train_step(cfg, oc)(params, adamw_init(params, oc), _train_batch(cfg, cuda))
-    assert all(n == 0 for c in launch_counts().values() for n in c.values())
+    loss, grads = _loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["mamba_scan"] == {"chain": 14, "bwd": 7}, counts
+    assert counts["flash_attention"]["simt_f32"] == 2 and counts["flash_attention"]["bwd_f32"] == 1
+    want_loss, want = _loss_and_grads(params_cpu, cfg, batch_cpu)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    paths = [path for path, _ in _paths(params_cpu)]
+    by_path = dict(zip(paths, want))
+    for path, g, w in zip(paths, grads, want):
+        top = float(w.abs().max())
+        if path[-1] == "bk":
+            top = max(top, float(by_path[path[:-1] + ("wk",)].abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * top, path
+    oc = OptConfig(lr=1e-3)
+    step = make_train_step(cfg, oc)
+    losses = []
+    for p, b in ((params, batch), (params_cpu, batch_cpu)):
+        state = adamw_init(p, oc)
+        p, state, _ = step(p, state, b)
+        _, state, metrics = step(p, state, b)
+        losses.append(float(metrics["loss"]))
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
