@@ -183,12 +183,31 @@ no install: it puts ``src/`` on the path itself).  Phases:
     (held to the plain chain) and a 4-slot tail server for 4 clients; the
     Chrome trace's span names; then ``fit`` on a second study, its first
     step replayed on the CPU; each verb's host seconds and peak memory;
+20b. (Z26) the multi-pod split pipeline (``core/split.py``
+    ``multipod_split_step``, the twin of ``examples/multipod_pipeline.py``
+    and ``benchmarks/bench_multipod_wire.py``): llama3-8b whole in bf16
+    (random weights, seed 0), B 8 of 2048 tokens in 4 microbatches, its two
+    stages as two ``gloo`` ranks spawned on the one card, each handed its
+    ``stage_params`` by CUDA IPC, in three wire modes (the bf16 residual
+    stream, the f32 latent of a rate-0.5 AE, int8 codes and row scales
+    through the codec kernels); each mode's tail logits held bit for bit to
+    the one-process composition (``sequential_split_step``), the raw one also
+    to one ``forward`` under Z4's rule; the bytes sent, each rank's
+    launches, its host-clock step beside the composition's, its busy share
+    and peak; the codec kernels timed at the wire's shape (N 4096, C 4096,
+    L 2048); then the two launchers as a user runs them:
+    ``python -m repro_torch.launch.serve`` on llama3.2-3b whole (its tokens
+    equal to a ``ServingEngine`` run here, its last line naming the card)
+    and ``python -m repro_torch.launch.train`` on rwkv6-1.6b whole for 2
+    steps with ``--ckpt`` (the checkpoint restored bit for bit equal to the
+    same run's parameters made here);
 21. print the kernels' launch counts with their errors, times and bounds as
     one JSON line (the three backward kernels with their training runs'
     launches), then ``{"ok": true, "device": ...}``.
 
 Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18-Z25, Z11, Z12's training and its
-deploy, Z13, Z14, each part of Z15, Z16, Z17 and its ``fit``) runs with the
+deploy, Z13, Z14, each part of Z15, Z16, Z17 and its ``fit``, Z26's composition
+and each of its ranks' steps) runs with the
 launch counts set to 0 just before it and read just after; a served run's
 prefill and decode are counted apart as well, and ``flash_attention``'s
 launches by route (``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32
@@ -210,6 +229,8 @@ import json
 import math
 import os
 import re
+import contextlib
+import io
 import subprocess
 import sys
 import tempfile
@@ -220,6 +241,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.api import NetworkPath, Study, Tier, TierTopology  # noqa: E402
@@ -234,8 +256,11 @@ from repro_torch.core.saliency import (candidate_split_points, cumulative_salien
 from repro_torch.core.bottleneck import latent_channels  # noqa: E402
 from repro_torch.core.scenarios import (PLATFORMS, HILPlatform, Scenario,  # noqa: E402
                                         scenario_times_and_payload)
+from repro_torch.core import split as SP  # noqa: E402
 from repro_torch.core.split import SplitPlan  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ref, reset_launches, tiles  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels import bottleneck_decompress as decomp  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -247,6 +272,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.layered import transformer_as_layered  # noqa: E402
 from repro_torch.data.synthetic import token_batch, toy_image_iter, toy_images  # noqa: E402
 from repro_torch.models.vgg import feature_index, vgg16  # noqa: E402
+from repro_torch.training import checkpoint  # noqa: E402
 from repro_torch.training.optimizer import OptConfig, adam_init, adam_update  # noqa: E402
 from repro_torch.training.train import init_train_state, make_train_step  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -442,6 +468,27 @@ ZOO_LOSS_RTOL, ZOO_GRAD_RTOL = 1e-5, 1e-4
 # its copy keeps one 8-layer period, since a depth cut holds whole periods
 ZOO_STUDIES = ("llama3.2-3b", "rwkv6-1.6b", "jamba-v0.1-52b")
 ZOO_STUDY_LAYERS = 4
+# Z26: the multi-pod split pipeline (core/split.py), the twin of
+# examples/multipod_pipeline.py and benchmarks/bench_multipod_wire.py:
+# llama3-8b whole in bf16, B 8 of 2048 tokens in 4 microbatches (the
+# benchmark's B 32 cut to 8, which keeps the tail's logits at 4.2 GB), an AE
+# at rate 0.5, the two stages as two gloo ranks on the one card; one counted
+# step a mode, then MULTIPOD_STEPS timed between barriers, then one profiled
+MULTIPOD_ARCH = "llama3-8b"
+MULTIPOD_BATCH, MULTIPOD_SEQ, MULTIPOD_MICRO = 8, 2048, 4
+MULTIPOD_STEPS = 3
+MULTIPOD_TIMEOUT_S = 600
+# the bytes the head sends a step: the bf16 residual stream, the f32 latent,
+# int8 codes and one f32 scale a token
+MULTIPOD_WIRE_BYTES = {"raw": 8 * 2048 * 4096 * 2, "ae_f32": 8 * 2048 * 2048 * 4,
+                       "ae_int8": 8 * 2048 * 2048 + 8 * 2048 * 4}
+# Z26's launchers as a user runs them: serve llama3.2-3b whole; train
+# rwkv6-1.6b whole (1.597 B parameters, a 6.4 GB f32 checkpoint: the
+# smallest full-width model the train launcher takes, since whisper-tiny
+# needs frames its token stream does not carry) for 2 steps at the
+# launcher's batch 8 of 64 tokens
+LAUNCH_SERVE = ["--arch", "llama3.2-3b", "--full-size"]
+LAUNCH_TRAIN = ["--arch", "rwkv6-1.6b", "--full-size", "--steps", "2", "--log-every", "1"]
 # its bar, relative to max |plain| of y and of the final state: f32 in
 # another order (fused multiply-adds, the kernel's own sum over d_state in
 # two lanes' partials) and exp as ex2.approx of a pre-scaled argument
@@ -2525,9 +2572,11 @@ def device_breakdown(fn, top=6) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    # "Command Buffer Full" marks the host waiting on a full launch queue
+    # "Command Buffer Full" marks the host waiting on a full launch queue;
+    # "gloo:send" and "gloo:recv" span a rank's host-side transfers
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full")
+                   if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"
+                   and not e.name.startswith("gloo:"))
     busy, end, by_name = 0.0, float("-inf"), {}
     for lo, hi, name in spans:
         busy += max(0.0, hi - max(lo, end))
@@ -3134,6 +3183,231 @@ def batcher_run(arch, prompt_lens, dtype="bfloat16") -> dict:
     return out
 
 
+def multipod_rank(rank, world, tmp, stages, ae, tokens, refs, cfg) -> dict:
+    """One pod of Z26, a spawned process on the one card: in each wire mode
+    one counted step (launches, the bytes sent, the tail's logits held to
+    the sequential composition's bit for bit), ``MULTIPOD_STEPS`` steps on
+    the host clock between barriers, and one under ``device_breakdown``;
+    this process's peak (the weights are the parent's, mapped by CUDA IPC,
+    and not in it)."""
+    launch_mesh.start_process_group("gloo", rank, world, f"file://{tmp}/rdv", device="cuda:0",
+                                    timeout_s=MULTIPOD_TIMEOUT_S)
+    try:
+        mesh = launch_mesh.make_mesh_compat((2, 1, 1), ("pod", "data", "model"))
+        stage = mesh.get_local_rank("pod")
+        torch.cuda.reset_peak_memory_stats()
+        out = {"rank": rank, "stage": stage, "modes": {}}
+        for mode in SP.WIRE_MODES:
+            def step():
+                return SP.multipod_split_step(stages[stage], cfg, {"tokens": tokens}, mesh,
+                                              ae=None if mode == "raw" else ae,
+                                              n_micro=MULTIPOD_MICRO,
+                                              quantize_wire=mode == "ae_int8")
+            reset_launches()
+            logits = step()
+            torch.cuda.synchronize()
+            row = {"launches": launch_counts(), "returned": logits is not None,
+                   "wire_bytes": SP.multipod_split_step.wire_bytes[mode]}
+            if logits is not None:
+                row["bit_equal"] = bool(torch.equal(logits, refs[mode]))
+                row["max_abs_err"] = rows_max_abs(logits, refs[mode])
+            del logits
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MULTIPOD_STEPS):
+                step()
+            torch.cuda.synchronize()
+            dist.barrier()
+            row["step_ms"] = 1e3 * (time.perf_counter() - t0) / MULTIPOD_STEPS
+            dist.barrier()
+            row["profile"] = device_breakdown(step, top=8)
+            out["modes"][mode] = row
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def rows_max_abs(a, b) -> float:
+    """max |a - b| over (B, S, V) logits, a batch row at a time in f32."""
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def multipod(gen) -> dict:
+    """Z26: the multi-pod split pipeline, llama3-8b whole in bf16 over two
+    gloo ranks on the one card.  The parent draws the weights once and
+    hands each rank its ``stage_params`` through CUDA IPC.  Each wire mode's
+    sequential composition (``sequential_split_step``: the same microbatches
+    and shapes in one process) is timed here first; the raw one is held to
+    one ``forward`` over the whole batch under Z4's rule; the codec kernels
+    are timed at the wire's shape; then the ranks run and the tail's logits
+    are held bit for bit to the composition's, the wire bytes to
+    ``MULTIPOD_WIRE_BYTES`` and each rank's launches to the code's."""
+    t_phase = time.perf_counter()
+    cfg = get_config(MULTIPOD_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "batch": MULTIPOD_BATCH, "seq": MULTIPOD_SEQ, "n_micro": MULTIPOD_MICRO,
+           "init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "param_gb": sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9}
+    ae = B.init_bottleneck(3, (cfg.d_model,), 0.5, device="cuda")
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (MULTIPOD_BATCH, MULTIPOD_SEQ))
+                              .astype(np.int32)).cuda()
+    n_groups = T.block_structure(cfg)[1]
+    flash = n_groups // 2 * MULTIPOD_MICRO      # a stage's launches a step
+    refs, modes = {}, {}
+    with torch.no_grad():
+        for mode in SP.WIRE_MODES:
+            codec = MULTIPOD_MICRO * (mode == "ae_int8")
+
+            def run():
+                return SP.sequential_split_step(params, cfg, {"tokens": tokens},
+                                                ae=None if mode == "raw" else ae,
+                                                n_micro=MULTIPOD_MICRO,
+                                                quantize_wire=mode == "ae_int8")
+            reset_launches()
+            refs[mode] = run()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            check_launches(f"Z26 {mode} sequential", counts,
+                           {"flash_attention": 2 * flash, "bottleneck_compress": codec,
+                            "bottleneck_decompress": codec})
+            t0 = time.perf_counter()
+            for _ in range(MULTIPOD_STEPS):
+                again = run()
+            torch.cuda.synchronize()
+            modes[mode] = {"sequential_ms": 1e3 * (time.perf_counter() - t0) / MULTIPOD_STEPS,
+                           "sequential_launches": counts}
+            if not torch.equal(again, refs[mode]):
+                raise AssertionError(f"Z26 {mode}: two sequential steps differ in some bit")
+            del again
+        # the raw composition against one forward over the whole batch, and
+        # that forward's response to one rounding of its embedding (Z4's rule)
+        flogits = T.logits_from_x(params, cfg, T.forward(params, cfg, {"tokens": tokens})["x"])
+        flipped = {**params, "embed": ulp_flip(params["embed"])}
+        moved = T.logits_from_x(flipped, cfg, T.forward(flipped, cfg, {"tokens": tokens})["x"])
+        del flipped
+    top = max(float(x.abs().max()) for x in flogits)
+    ulp_err, err = rows_max_abs(moved, flogits) / top, rows_max_abs(refs["raw"], flogits) / top
+    del flogits, moved
+    bar = max(ZOO_RTOL["bfloat16"], ULP_FACTOR * ulp_err)
+    modes["raw"]["vs_forward"] = {"rel_err": err, "one_ulp_input_response": ulp_err, "bar": bar,
+                                  "max_abs_logit": top}
+    if err > bar:
+        raise AssertionError(f"Z26 raw: the composition's logits are off the forward's by {err} "
+                             f"of max |logit| (bar {bar})")
+    # the codec kernels at the wire's shape: a microbatch's rows
+    n, latent = MULTIPOD_BATCH // MULTIPOD_MICRO * MULTIPOD_SEQ, B.latent_channels(cfg.d_model, 0.5)
+    out["codec"] = [check_compress("multipod_wire", n, cfg.d_model, latent, gen),
+                    check_decompress("multipod_wire", n, cfg.d_model, latent, gen)]
+    torch.cuda.empty_cache()
+    out["parent_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    t0 = time.perf_counter()
+    stages = (SP.stage_params(params, cfg, 0), SP.stage_params(params, cfg, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = launch_mesh.spawn_ranks(multipod_rank, 2, (tmp, stages, ae, tokens, refs, cfg),
+                                        timeout_s=MULTIPOD_TIMEOUT_S)
+    out["ranks_s"] = time.perf_counter() - t0
+    by_stage = {r["stage"]: r for r in ranks}
+    if sorted(by_stage) != [0, 1]:
+        raise AssertionError(f"Z26: the ranks hold stages {sorted(by_stage)}")
+    for mode in SP.WIRE_MODES:
+        head, tail = by_stage[0]["modes"][mode], by_stage[1]["modes"][mode]
+        codec = MULTIPOD_MICRO * (mode == "ae_int8")
+        check_launches(f"Z26 {mode} head", head["launches"],
+                       {"flash_attention": flash, "bottleneck_compress": codec})
+        check_launches(f"Z26 {mode} tail", tail["launches"],
+                       {"flash_attention": flash, "bottleneck_decompress": codec})
+        for row in (head, tail):
+            check_flash_route(f"Z26 {mode}", row["launches"], cfg.dtype, flash)
+        if head["returned"] or not tail["returned"]:
+            raise AssertionError(f"Z26 {mode}: the head returned logits or the tail none")
+        if not tail["bit_equal"]:
+            raise AssertionError(f"Z26 {mode}: the tail's logits differ from the sequential "
+                                 f"composition's by up to {tail['max_abs_err']}")
+        if (head["wire_bytes"], tail["wire_bytes"]) != (MULTIPOD_WIRE_BYTES[mode], 0):
+            raise AssertionError(f"Z26 {mode}: sent {head['wire_bytes']} and "
+                                 f"{tail['wire_bytes']} B, want {MULTIPOD_WIRE_BYTES[mode]} and 0")
+        modes[mode].update(
+            step_ms=max(head["step_ms"], tail["step_ms"]),
+            step_over_sequential=max(head["step_ms"], tail["step_ms"])
+            / modes[mode]["sequential_ms"],
+            wire_bytes=head["wire_bytes"],
+            # the reference's HLO count: both directions and the drain wave
+            reference_count_bytes=head["wire_bytes"] * 2 * (MULTIPOD_MICRO + 1) // MULTIPOD_MICRO,
+            busy_share={"head": head["profile"]["busy_share"],
+                        "tail": tail["profile"]["busy_share"]})
+    out["modes"], out["ranks"] = modes, ranks
+    del params, stages, refs
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def launchers() -> dict:
+    """Z26's launchers as subprocesses, as a user runs them: ``serve`` on
+    llama3.2-3b whole, its tokens equal to a ``ServingEngine`` run in this
+    process and its last line naming the card; ``train`` on rwkv6-1.6b
+    whole for 2 steps with ``--ckpt``, its checkpoint restored and held bit
+    for bit to the parameters of the same run made here by ``main`` (bf16
+    -> f32 -> bf16 is exact, and the two runs are the same work on the same
+    card)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    card = torch.cuda.get_device_name(0)
+
+    def cli(module, args) -> list:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", module, *args], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=MULTIPOD_TIMEOUT_S)
+        if run.returncode:
+            raise AssertionError(f"Z26: {module} exited {run.returncode}:\n{run.stderr[-3000:]}")
+        print(f"Z26 {module} took {time.perf_counter() - t0:.1f} s", flush=True)
+        return run.stdout.splitlines()
+
+    out = {}
+    lines = cli("repro_torch.launch.serve", LAUNCH_SERVE)
+    got = [json.loads(line.split(": ", 1)[1]) for line in lines if line.startswith("req ")]
+    cfg = get_config("llama3.2-3b")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 16).astype(np.int32), max_new=16)
+            for i in range(4)]
+    ServingEngine(cfg, T.init_params(0, cfg, device="cuda"), cache_slots=16 + 16 + 8,
+                  device="cuda").run(reqs)
+    want = [r.out for r in reqs]
+    if got != want or not lines[-1].endswith(f"tok/s on {card})"):
+        raise AssertionError(f"Z26 serve launcher: tokens {got}, want {want}; last line "
+                             f"{lines[-1]!r}")
+    out["serve"] = {"args": LAUNCH_SERVE, "last_line": lines[-1], "tokens_equal": True}
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rwkv.npz")
+        lines = cli("repro_torch.launch.train", LAUNCH_TRAIN + ["--ckpt", path])
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            params, metrics = launch_train.main(LAUNCH_TRAIN)
+        t0 = time.perf_counter()
+        back = checkpoint.restore(path, params)
+        out["train"] = {"args": LAUNCH_TRAIN, "log": lines, "loss": float(metrics["loss"]),
+                        "log_here": log.getvalue().splitlines(),
+                        "checkpoint_gb": os.path.getsize(path) / 1e9,
+                        "restore_s": time.perf_counter() - t0,
+                        "equal": all(torch.equal(a, b) for a, b in
+                                     zip(tree_leaves(back), tree_leaves(params)))}
+        if not math.isfinite(out["train"]["loss"]) or not out["train"]["equal"]:
+            raise AssertionError(f"Z26 train launcher: {out['train']}")
+        del params, metrics, back
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3379,6 +3653,21 @@ def main() -> int:
     study = study_facade(card)
     print("Z17 study", json.dumps(study), flush=True)
     print(f"Z17 took {time.perf_counter() - t0:.1f} s", flush=True)
+    # Z26: the multi-pod split pipeline over two ranks on the card, the codec
+    # kernels timed at its wire's shape, and the two launchers
+    pipeline = multipod(gen)
+    comp_rows.append(pipeline["codec"][0])
+    dec_rows.append(pipeline["codec"][1])
+    print("Z26 multipod", json.dumps(pipeline), flush=True)
+    for mode, row in pipeline["modes"].items():
+        print(f"Z26 {mode}: step {row['step_ms']:.1f} ms, sequential {row['sequential_ms']:.1f} "
+              f"ms, wire {row['wire_bytes']} B (the reference's count "
+              f"{row['reference_count_bytes']} B), busy {row['busy_share']}", flush=True)
+    print(f"Z26 pipeline took {pipeline['phase_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launched = launchers()
+    print("Z26 launchers", json.dumps(launched), flush=True)
+    print(f"Z26 launchers took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the kernels line: launches from each kernel's main path
     counts_keys = list(launch_counts())
@@ -3419,7 +3708,11 @@ def main() -> int:
             **{f"Z24 {arch} training": {k: r["launches"].get(k, {}) for k in counts_keys}
                for arch, r in trained.items()},
             **{f"Z25 {arch} profile": {k: row["verbs"]["profile"]["launches"].get(k, {})
-                                       for k in counts_keys} for arch, row in studies.items()}}
+                                       for k in counts_keys} for arch, row in studies.items()},
+            **{f"Z26 {mode} sequential": row["sequential_launches"]
+               for mode, row in pipeline["modes"].items()},
+            **{f"Z26 {mode} {('head', 'tail')[r['stage']]}": r["modes"][mode]["launches"]
+               for r in pipeline["ranks"] for mode in SP.WIRE_MODES}}
 
     def entry(name, rows, replaces, headline):
         head = next(e for e in rows if e["shape"] == headline)

@@ -2,7 +2,8 @@
 loss -> gradients -> AdamW.
 
 The reference's ``shard_fn`` (sharding annotations) has no twin until the
-port distributes (ROADMAP A14).
+port shards a step over several cards by its sharding rules (ROADMAP A14b);
+``launch/train.py`` drives this step on one device.
 """
 from __future__ import annotations
 

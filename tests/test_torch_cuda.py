@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.core import bottleneck as B  # noqa: E402
+from repro_torch.core import split as SP  # noqa: E402
 from repro_torch.kernels import launch_counts, ref, reset_launches, tiles  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels.bottleneck_decompress import bottleneck_decompress  # noqa: E402
@@ -21,6 +22,7 @@ from repro_torch.kernels.flash_attention import (ROUTES, bwd_kernel_info,  # noq
                                                  flash_attention_lse, kernel_info)
 from repro_torch.kernels import mamba_scan as MS  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd  # noqa: E402
+from repro_torch.launch import mesh as LM  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import (bwd_workspace, rwkv6_scan,  # noqa: E402
                                             rwkv6_scan_bwd)
 from repro_torch.models.vgg import vgg_cifar  # noqa: E402
@@ -890,3 +892,63 @@ def test_hybrid_train_step_on_the_card_matches_the_cpu_path(cuda):
         _, state, metrics = step(p, state, b)
         losses.append(float(metrics["loss"]))
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+
+
+# the multi-pod pipeline's card route: llama3-8b narrowed to the kernels'
+# head dim 128, bf16, 4 layers, B 8 of 256 tokens in 4 microbatches
+PIPELINE_CFG = dict(n_layers=4, d_model=512, n_heads=4, n_kv_heads=2, head_dim=128, d_ff=1024)
+PIPELINE_MODES = ("raw", "ae_f32", "ae_int8")
+
+
+def _nccl_pipeline_rank(rank, world, tmp):
+    """One pod on card ``rank``: the same seeded weights drawn on each card,
+    the pipeline over nccl in each wire mode, and on the tail the
+    sequential composition on its own card."""
+    dev = LM.start_process_group("nccl", rank, world, f"file://{tmp}/rdv", device=f"cuda:{rank}",
+                                 timeout_s=240)
+    try:
+        cfg = reduced(get_config("llama3-8b"), **PIPELINE_CFG)
+        params = T.init_params(0, cfg, device=dev)
+        ae = B.init_bottleneck(2, (cfg.d_model,), 0.5, device=dev)
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 256)).astype(np.int32)).to(dev)
+        mesh = LM.make_mesh_compat((2,), ("pod",))
+        stage = mesh.get_local_rank("pod")
+        out = {"stage": stage}
+        for mode in PIPELINE_MODES:
+            kw = dict(ae=None if mode == "raw" else ae, n_micro=4, quantize_wire=mode == "ae_int8")
+            reset_launches()
+            logits = SP.multipod_split_step(SP.stage_params(params, cfg, stage), cfg,
+                                            {"tokens": tokens}, mesh, **kw)
+            torch.cuda.synchronize()
+            row = {"launches": launch_counts(), "bytes": SP.multipod_split_step.wire_bytes[mode],
+                   "returned": logits is not None}
+            if logits is not None:
+                want = SP.sequential_split_step(params, cfg, {"tokens": tokens}, **kw)
+                row["equal"] = bool(torch.equal(logits, want))
+            out[mode] = row
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def test_multipod_pipeline_over_nccl_across_two_cards(cuda, tmp_path):
+    """Each pod on a card of its own, the wire from card to card: the tail's
+    logits equal the sequential composition's bit for bit in every mode,
+    the head sends the wire's bytes, and each pod launches its kernels."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: nccl puts each pod on a card of its own")
+    ranks = {r["stage"]: r for r in LM.spawn_ranks(_nccl_pipeline_rank, 2, (str(tmp_path),),
+                                                   timeout_s=300)}
+    tokens, latent = 8 * 256, PIPELINE_CFG["d_model"] // 2
+    sent = {"raw": tokens * PIPELINE_CFG["d_model"] * 2, "ae_f32": tokens * latent * 4,
+            "ae_int8": tokens * latent + tokens * 4}
+    for mode in PIPELINE_MODES:
+        head, tail = ranks[0][mode], ranks[1][mode]
+        assert (head["bytes"], tail["bytes"]) == (sent[mode], 0), mode
+        assert not head["returned"] and tail["equal"], mode
+        for row in (head, tail):
+            assert row["launches"]["flash_attention"]["wgmma_bf16"] == 2 * 4, mode
+        codec = 4 * (mode == "ae_int8")
+        assert sum(head["launches"]["bottleneck_compress"].values()) == codec, mode
+        assert sum(tail["launches"]["bottleneck_decompress"].values()) == codec, mode

@@ -372,6 +372,8 @@ def _numpy_tree(tree):
 def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert {"mesh.py", "serve.py", "train.py"} <= {f.name for f in files
+                                                    if f.parent.name == "launch"}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
