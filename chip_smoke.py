@@ -201,13 +201,33 @@ no install: it puts ``src/`` on the path itself).  Phases:
     and ``python -m repro_torch.launch.train`` on rwkv6-1.6b whole for 2
     steps with ``--ckpt`` (the checkpoint restored bit for bit equal to the
     same run's parameters made here);
+20c. (Z27) sharded training (``sharding/rules.py``, ``sharding/blocks.py``,
+    ``make_train_step`` on a mesh, the twin of the reference's
+    ``launch/train.py --mesh`` step): llama3.2-3b at full width in bf16 cut
+    to 8 of its 28 layers (random weights, seed 0), one ``token_batch`` of
+    B 4 x S 1024, ``OptConfig()``, 2 steps, first as the one-process step,
+    then as four ``gloo`` ranks spawned on the one card on a ("data",
+    "model") = (2, 2) mesh, each holding its blocks of the train state,
+    gathering each layer's weights as it runs and reducing the gradients
+    back (host-staged collectives); each step's loss held to the
+    one-process step's (1e-2 relative), every block to its part of the
+    one-process parameters, mapped by CUDA IPC (AdamW's step size, 2 lr a
+    step, plus one ulp a step), each rank's launches to the code's (8
+    flash forwards and 8 recomputes on ``wgmma_bf16``, 8 backwards on
+    ``bwd_bf16`` a step); then depth-2 f32 llama (B 4, S 512) the same way
+    (both runs in one spawn of the four ranks), its losses at 1e-6, ``m``
+    after step 1 within 1e-5 of each leaf's max and ``m``, ``v`` after step
+    2 within 1e-4; each rank's step ms (the first step on the host clock,
+    the last under ``device_breakdown``), busy share, peak and the bytes its
+    collectives moved, beside the one-process step's ms and peak;
 21. print the kernels' launch counts with their errors, times and bounds as
     one JSON line (the three backward kernels with their training runs'
     launches), then ``{"ok": true, "device": ...}``.
 
 Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18-Z25, Z11, Z12's training and its
 deploy, Z13, Z14, each part of Z15, Z16, Z17 and its ``fit``, Z26's composition
-and each of its ranks' steps) runs with the
+and each of its ranks' steps, Z27's one-process steps and each of its ranks'
+steps) runs with the
 launch counts set to 0 just before it and read just after; a served run's
 prefill and decode are counted apart as well, and ``flash_attention``'s
 launches by route (``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32
@@ -261,6 +281,8 @@ from repro_torch.core.split import SplitPlan  # noqa: E402
 from repro_torch.kernels import _build, launch_counts, ref, reset_launches, tiles  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.sharding import blocks as shard_blocks  # noqa: E402
+from repro_torch.sharding import rules as sharding_rules  # noqa: E402
 from repro_torch.kernels import bottleneck_compress as comp  # noqa: E402
 from repro_torch.kernels import bottleneck_decompress as decomp  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -489,6 +511,37 @@ MULTIPOD_WIRE_BYTES = {"raw": 8 * 2048 * 4096 * 2, "ae_f32": 8 * 2048 * 2048 * 4
 # launcher's batch 8 of 64 tokens
 LAUNCH_SERVE = ["--arch", "llama3.2-3b", "--full-size"]
 LAUNCH_TRAIN = ["--arch", "rwkv6-1.6b", "--full-size", "--steps", "2", "--log-every", "1"]
+# Z27: sharded training (sharding/, training/train.py on a mesh), the twin
+# of the reference's launch/train.py --mesh step: llama3.2-3b at full width
+# in bf16 (seed 0), one token_batch of B 4 x S 1024, OptConfig(),
+# SHARDED_STEPS steps, first as the one-process step on the card, then as
+# four gloo ranks spawned on the one card on a ("data", "model") = (2, 2)
+# mesh (a row a rank); then depth-2 f32 llama (B 4, S 512) the same way:
+# (dtype, layers or None for whole, B, S).  The bf16 run is cut to 8 of 28
+# layers: gloo moves the collectives' operands through host memory at about
+# 0.3-0.5 GB/s a rank, so a whole-depth step took 58.7 s (30 GB of operands;
+# an H100 80GB HBM3 at 700 W), 12 layers 22.7-36.7 s, and the phase is kept
+# under 150 s
+SHARDED_ARCH = "llama3.2-3b"
+SHARDED_MESH = ((2, 2), ("data", "model"))
+SHARDED_RUNS = [("bfloat16", 8, 4, 1024), ("float32", 2, 4, 512)]
+SHARDED_STEPS = 2
+SHARDED_TIMEOUT_S = 600
+# each sharded step's loss against the one-process step's, relative: bf16
+# rows split over ranks round otherwise (gradients summed in bf16 over the
+# ranks); f32 sums in another order.  The f32 m after step 1 within 1e-5
+# of each leaf's max (m is then the clipped gradient times 1 - b1, so this
+# holds the gradients); m and v after step 2 within the reference's
+# cross-device bar (tests/test_multipod.py), 1e-4, since AdamW moves a
+# weight whose gradient is near its eps by a share of lr that the
+# gradient's last bits set, and step 2's gradient is taken there (6.1e-5 of
+# max measured on an H100).  Every parameter within AdamW's own step size,
+# 2 lr a step (a gradient near 0 may take either sign), plus one ulp a step
+# (each run rounds the parameter once a step; one ulp of the bf16 bound
+# alone was passed 1.0045-fold on an H100); a block put in the wrong place
+# misses by the weights' scale
+SHARDED_LOSS_RTOL = {"bfloat16": 1e-2, "float32": 1e-6}
+SHARDED_MOMENT = {"step 1": 1e-5, "step 2": 1e-4}
 # its bar, relative to max |plain| of y and of the final state: f32 in
 # another order (fused multiply-adds, the kernel's own sum over d_state in
 # two lanes' partials) and exp as ex2.approx of a pre-scaled argument
@@ -2347,14 +2400,7 @@ def train_zoo(arch, n_layers, b, s) -> dict:
         for kernel in total:
             for r, n in counts[kernel].items():
                 total[kernel][r] += n
-        for kernel, routes in want.items():
-            got = {r: n for r, n in counts[kernel].items() if n}
-            need = {r: n for r, n in routes.items() if n}
-            if got != need:
-                raise AssertionError(f"Z24 {arch} step {i}: {kernel} launched {counts[kernel]}, "
-                                     f"want {need}")
-        if any(sum(c.values()) for k, c in counts.items() if k not in want):
-            raise AssertionError(f"Z24 {arch} step {i}: launched {counts}")
+        check_train_launches(f"Z24 {arch} step {i}", counts, want)
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"Z24 {arch}: losses {losses} not finite and falling")
     steady = sorted(times[1:])[len(times[1:]) // 2]
@@ -3408,6 +3454,191 @@ def launchers() -> dict:
     return out
 
 
+def ulp(t: torch.Tensor, dtype) -> torch.Tensor:
+    """The spacing of ``dtype`` at each value of ``t``, in f32."""
+    bits = {torch.bfloat16: 8, torch.float32: 24}[dtype]
+    return torch.exp2((torch.frexp(t.float())[1] - bits).float())
+
+
+def sharded_rank(rank, world, tmp, runs) -> list:
+    """One rank of Z27, a spawned process on the one card, running each of
+    ``runs`` (``(cfg, B, S, ref)``) in turn on the (2, 2) mesh
+    (:func:`sharded_run`)."""
+    launch_mesh.start_process_group("gloo", rank, world, f"file://{tmp}/rdv", device="cuda:0",
+                                    timeout_s=SHARDED_TIMEOUT_S)
+    try:
+        mesh = launch_mesh.make_mesh_compat(*SHARDED_MESH)
+        rows = []
+        for cfg, b, s, ref in runs:
+            rows.append(dict(sharded_run(cfg, b, s, ref, mesh), rank=rank))
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def sharded_run(cfg, b, s, ref, mesh) -> dict:
+    """The train state drawn whole and cut into this rank's blocks
+    (``init_train_state`` with the mesh), then ``SHARDED_STEPS`` steps of
+    the sharded ``make_train_step``, each counted (kernel launches, the
+    collectives' bytes), the first on the host clock between barriers, the
+    last under ``device_breakdown``; each block and, in f32, each moment
+    ``ref`` holds held on the card to its part of the one-process step's
+    tree (``ref``, the parent's, mapped by CUDA IPC)."""
+    oc = OptConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state = init_train_state(0, cfg, oc, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    row = {"coord": shard_blocks.coordinates(mesh), "init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "state_gb": sum(t.numel() * t.element_size()
+                           for t in tree_leaves((params, state))) / 1e9,
+           "losses": [], "launches": [], "traffic": [], "moments": {}}
+    batch = train_batch(cfg, b, s, "cuda")
+    step = make_train_step(cfg, oc, mesh=mesh)
+    specs = sharding_rules.param_specs(T.param_spec(cfg), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(SHARDED_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        shard_blocks.reset_traffic()
+        t0 = time.perf_counter()
+        if i < SHARDED_STEPS - 1:
+            params, state, metrics = step(params, state, batch)
+            row["losses"].append(float(metrics["loss"]))        # synchronises
+            row["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        else:
+            done = {}
+            row["profile"] = device_breakdown(
+                lambda: done.update(out=step(params, state, batch)), top=8)
+            params, state, metrics = done.pop("out")
+            row["losses"].append(float(metrics["loss"]))
+        row["launches"].append(launch_counts())
+        row["traffic"].append(dict(shard_blocks.traffic))
+        if f"m{i + 1}" in ref:
+            row["moments"][f"step {i + 1}"] = {
+                key: max(float((blk - shard_blocks.local_block(full, spec, mesh)).abs().max())
+                         / max(float(full.abs().max()), 1e-30)
+                         for blk, spec, full in zip(tree_leaves(state[key]), tree_leaves(specs),
+                                                    tree_leaves(ref[f"{key}{i + 1}"])))
+                for key in ("m", "v") if f"{key}{i + 1}" in ref}
+    row["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del batch, step
+    torch.cuda.empty_cache()
+    size = 2 * oc.lr * SHARDED_STEPS
+    worst, err = 0.0, 0.0
+    for blk, spec, full in zip(tree_leaves(params), tree_leaves(specs),
+                               tree_leaves(ref["params"])):
+        want = shard_blocks.local_block(full, spec, mesh).float()
+        gap = (blk.float() - want).abs()
+        bound = size + SHARDED_STEPS * ulp(want.abs() + size, blk.dtype)
+        err = max(err, float(gap.max()))
+        worst = max(worst, float((gap / bound).max()))
+    row["params"] = {"max_abs_err": err, "over_bound": worst, "step_size": size}
+    return row
+
+
+def sharded_training() -> dict:
+    """Z27: each of ``SHARDED_RUNS`` first as the one-process step on the
+    card (``SHARDED_STEPS`` steps, launches counted; its parameters, and in
+    f32 its moments after step 1 and after the last step, kept on the card,
+    the rest freed), then, in one spawn, as four gloo ranks on a (2, 2) mesh
+    (:func:`sharded_rank`); each step's loss held to the one-process
+    step's, every block to its part of the one-process tree, each rank's
+    launches to the code's count."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    out = {"arch": SHARDED_ARCH, "mesh": SHARDED_MESH, "steps": SHARDED_STEPS, "runs": [],
+           "card_free_gb_at_start": free / 1e9, "card_gb": total / 1e9}
+    given = []
+    for dtype, n_layers, b, s in SHARDED_RUNS:
+        changes = {"dtype": dtype} if n_layers is None else {"dtype": dtype, "n_layers": n_layers}
+        cfg = served_cfg(SHARDED_ARCH, **changes)
+        want = scan_and_flash_launches(cfg, per_token_launches(cfg)[0])
+        oc = OptConfig()
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params, state = init_train_state(0, cfg, oc, device="cuda")
+        batch = train_batch(cfg, b, s, "cuda")
+        step = make_train_step(cfg, oc)
+        one, ref = {"losses": [], "step_ms": []}, {}
+        for i in range(SHARDED_STEPS):
+            reset_launches()
+            t1 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            one["losses"].append(float(metrics["loss"]))
+            one["step_ms"].append(1e3 * (time.perf_counter() - t1))
+            check_train_launches(f"Z27 {dtype} one-process step {i}", launch_counts(), want)
+            if dtype == "float32":
+                ref[f"m{i + 1}"] = tree_map(torch.clone, state["m"])
+                if i == SHARDED_STEPS - 1:
+                    ref[f"v{i + 1}"] = tree_map(torch.clone, state["v"])
+        one["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        one["s"] = time.perf_counter() - t0
+        ref["params"] = params
+        del state, batch, step, params
+        given.append((cfg, b, s, ref))
+        out["runs"].append({"dtype": dtype, "n_layers": cfg.n_layers, "B": b, "S": s,
+                            "one_process": one, "want": want})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = launch_mesh.spawn_ranks(sharded_rank, 4, (tmp, given),
+                                        timeout_s=SHARDED_TIMEOUT_S)
+    out["ranks_s"] = time.perf_counter() - t0
+    del given
+    torch.cuda.empty_cache()
+    for j, run in enumerate(out["runs"]):
+        one, want, dtype = run["one_process"], run.pop("want"), run["dtype"]
+        run["ranks"] = [rows[j] for rows in ranks]
+        print(f"Z27 {dtype} {run['n_layers']} layers: one-process step {one['step_ms'][-1]:.1f} "
+              f"ms, peak {one['peak_gb']:.2f} GB; ranks " + "; ".join(
+                  f"{r['rank']}: step {r['step_ms']:.1f} ms (profiled "
+                  f"{r['profile']['wall_ms']:.1f}), busy {r['profile']['busy_share']:.3f}, "
+                  f"peak {r['step_peak_gb']:.2f} GB, gathered {r['traffic'][-1]['all_gather']} "
+                  f"B, reduced {r['traffic'][-1]['reduce_scatter'] + r['traffic'][-1]['all_reduce']}"
+                  f" B, params {r['params']}, moments {r['moments']}" for r in run["ranks"]),
+              flush=True)
+        for r in run["ranks"]:
+            what = f"Z27 {dtype} rank {r['rank']}"
+            for i, counts in enumerate(r["launches"]):
+                check_train_launches(f"{what} step {i}", counts, want)
+            for i, (got, ref_loss) in enumerate(zip(r["losses"], one["losses"])):
+                if not abs(got - ref_loss) <= SHARDED_LOSS_RTOL[dtype] * abs(ref_loss):
+                    raise AssertionError(f"{what} step {i}: loss {got}, one-process {ref_loss}")
+            if r["params"]["over_bound"] > 1:
+                raise AssertionError(f"{what}: a parameter is off the one-process step's by "
+                                     f"{r['params']} of AdamW's bound")
+            for when, gaps in r["moments"].items():
+                if max(gaps.values()) > SHARDED_MOMENT[when]:
+                    raise AssertionError(f"{what}: moments after {when} off by {gaps} of their "
+                                         f"leaf's max (bar {SHARDED_MOMENT[when]})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def sum_launches(steps) -> dict:
+    """``{kernel: {route: n}}`` summed over a list of such counts."""
+    return {k: {r: sum(c[k][r] for c in steps) for r in steps[0][k]} for k in steps[0]}
+
+
+def check_train_launches(what, counts, want) -> None:
+    """A training step's launches, ``{kernel: {route: n}}``, equal to
+    ``want`` (:func:`scan_and_flash_launches`), and no other kernel's."""
+    for kernel, routes in want.items():
+        got = {r: n for r, n in counts[kernel].items() if n}
+        if got != {r: n for r, n in routes.items() if n}:
+            raise AssertionError(f"{what}: {kernel} launched {counts[kernel]}, want {routes}")
+    if any(sum(c.values()) for k, c in counts.items() if k not in want):
+        raise AssertionError(f"{what}: launched {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3668,6 +3899,10 @@ def main() -> int:
     launched = launchers()
     print("Z26 launchers", json.dumps(launched), flush=True)
     print(f"Z26 launchers took {time.perf_counter() - t0:.1f} s", flush=True)
+    # Z27: sharded training over four ranks on the card
+    sharded = sharded_training()
+    print("Z27 sharded training", json.dumps(sharded), flush=True)
+    print(f"Z27 took {sharded['phase_s']:.1f} s", flush=True)
 
     # the kernels line: launches from each kernel's main path
     counts_keys = list(launch_counts())
@@ -3712,7 +3947,9 @@ def main() -> int:
             **{f"Z26 {mode} sequential": row["sequential_launches"]
                for mode, row in pipeline["modes"].items()},
             **{f"Z26 {mode} {('head', 'tail')[r['stage']]}": r["modes"][mode]["launches"]
-               for r in pipeline["ranks"] for mode in SP.WIRE_MODES}}
+               for r in pipeline["ranks"] for mode in SP.WIRE_MODES},
+            **{f"Z27 {run['dtype']} rank {r['rank']}, {SHARDED_STEPS} steps": sum_launches(
+                r["launches"]) for run in sharded["runs"] for r in run["ranks"]}}
 
     def entry(name, rows, replaces, headline):
         head = next(e for e in rows if e["shape"] == headline)
@@ -3734,9 +3971,12 @@ def main() -> int:
                 "replaces": f"{fwd_replaces} (its backward: the TPU kernel has none)",
                 "launches": sum(by.values()), "launches_on": f"Z24 {run} training, "
                 f"{TRAIN_STEPS} steps", "launches_by": by,
-                "launches_elsewhere": {f"Z24d {e['arch']}": sum(
-                    n for r, n in e["launches"][kernel].items() if r.startswith("bwd"))
-                    for e in grad_rows},
+                "launches_elsewhere": {
+                    **{f"Z24d {e['arch']}": sum(
+                        n for r, n in e["launches"][kernel].items() if r.startswith("bwd"))
+                       for e in grad_rows},
+                    **{k: sum(n for r, n in c[kernel].items() if r.startswith("bwd"))
+                       for k, c in also.items() if k.startswith("Z27")}},
                 "max_abs_err": max(e["max_abs_err"] for e in rows),
                 "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -11,6 +11,7 @@ runs a function in that many local processes.
 from __future__ import annotations
 
 import math
+import os
 import queue
 import socket
 import time
@@ -74,12 +75,32 @@ def start_process_group(backend: str, rank: int, world_size: int, init_method: s
     return dev
 
 
-def _rank_entry(fn, rank, world_size, args, results) -> None:
+def start_from_env(device="cuda", *, timeout_s: float = 300.0) -> torch.device:
+    """Start this process's default group as ``torchrun`` describes it
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT`` in the environment, ``init_method="env://"``) through
+    :func:`start_process_group`: ``nccl`` on ``cuda:$LOCAL_RANK``, or
+    ``gloo`` where ``device`` is the CPU.  Returns the device."""
+    rank, world, local = (int(os.environ[k]) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"))
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return start_process_group("nccl", rank, world, "env://",
+                                   device=torch.device("cuda", local), timeout_s=timeout_s)
+    return start_process_group("gloo", rank, world, "env://", device=dev, timeout_s=timeout_s)
+
+
+def _rank_entry(fn, rank, world_size, boxed, results) -> None:
+    # the arguments' only reference, so that CUDA tensors mapped from the
+    # parent are released as soon as ``fn`` returns, before the parent
+    # collects them (spawn_ranks): the parent holds every block it sent until
+    # it sees the release and collects
+    args = boxed.pop()
     try:
         out = fn(rank, world_size, *args)
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
+    del args
     results.put((rank, True, out))
 
 
@@ -87,12 +108,14 @@ def spawn_ranks(fn, world_size: int, args: tuple = (), *, timeout_s: float = 600
     """``[fn(rank, world_size, *args) for each rank]``, each rank in a process
     of its own (``spawn``: no CUDA context crosses a fork).  ``fn`` is a
     module-level function; CUDA tensors in ``args`` reach the ranks through
-    CUDA IPC, without a copy, and stay the caller's.  Each result comes
+    CUDA IPC, without a copy, and stay the caller's (a rank drops them when
+    ``fn`` returns, and the caller's memory behind them is freed here once
+    the caller drops them too).  Each result comes
     back pickled, so return host values.  A rank that raises, dies or does
     not finish within ``timeout_s`` ends every rank, and this raises."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_entry, args=(fn, rank, world_size, args, results),
+    procs = [ctx.Process(target=_rank_entry, args=(fn, rank, world_size, [args], results),
                          daemon=True) for rank in range(world_size)]
     for p in procs:
         p.start()
@@ -128,6 +151,8 @@ def spawn_ranks(fn, world_size: int, args: tuple = (), *, timeout_s: float = 600
                 p.kill()
                 p.join()
         results.close()
+        if torch.cuda.is_initialized():
+            torch.cuda.ipc_collect()    # free what the ranks mapped and released
     return [out[r] for r in range(world_size)]
 
 

@@ -238,16 +238,32 @@ def _remat(fn, *args):
     return fn(*args)
 
 
-def _encoder(params, cfg, frames):
+def _no_gather(tree, path):
+    return tree
+
+
+def _gather_top(params, gather):
+    """``params`` with every leaf outside the group stacks (``layers``,
+    ``enc/layers``) through ``gather``: once a step."""
+    out = {k: v if k in ("layers", "enc") else gather(v, k) for k, v in params.items()}
+    if "enc" in params:
+        out["enc"] = {k: v if k == "layers" else gather(v, f"enc/{k}")
+                      for k, v in params["enc"].items()}
+    return out
+
+
+def _encoder(params, cfg, frames, gather=_no_gather):
     """Whisper-style encoder on stub frame embeddings (B, F, d_frontend):
     rope at positions 0..F-1 and no mask in its self-attention; each layer
-    recomputed in the backward, as the reference checkpoints it."""
+    recomputed in the backward, as the reference checkpoints it, its
+    parameters gathered inside the recompute."""
     enc = params["enc"]
     x = dense(frames, enc["proj"]) + enc["pos"][None]
     desc = LayerDesc("attn", "dense")
     positions = torch.arange(frames.shape[1], device=x.device)
 
     def layer(p, x):
+        p = gather(p, "enc/layers")
         return apply_layer_seq(p, desc, x, cfg, positions, causal=False)[0]
     for p in _groups(enc["layers"], cfg.n_enc_layers):
         x = _remat(layer, p, x)
@@ -270,7 +286,7 @@ def embed_inputs(params, cfg, batch):
     return x, positions, None
 
 
-def forward(params, cfg: ModelConfig, batch: dict, *, collect_cache=False):
+def forward(params, cfg: ModelConfig, batch: dict, *, collect_cache=False, gather=None):
     """Full-sequence forward.  batch: tokens (B,S_text) [+ patch_embeds
     (B,P,df) | frames (B,F,df)] on the parameters' device.
 
@@ -278,14 +294,29 @@ def forward(params, cfg: ModelConfig, batch: dict, *, collect_cache=False):
     None, positions).  Where grad mode is on, each group's activations are
     recomputed in the backward (:func:`_remat`), so a training step runs
     every layer's forward twice.
+
+    ``gather(tree, path)`` (the twin of the reference's ``shard_fn``; the
+    identity where ``None``) turns ``params``' sub-nest at ``path`` into
+    whole tensors, where ``params`` holds a rank's blocks of a sharded
+    tree (``sharding.blocks.Gather``): the top-level leaves once, each
+    group's parameters inside the function :func:`_remat` recomputes, so
+    that a group's whole weights live only while it runs.
     """
+    gather = gather or _no_gather
+    return _forward(_gather_top(params, gather), cfg, batch, collect_cache, gather)
+
+
+def _forward(params, cfg, batch, collect_cache, gather):
+    """:func:`forward` on ``params`` whose top-level leaves are gathered."""
     descs, n_groups = block_structure(cfg)
     x, positions, _ = embed_inputs(params, cfg, batch)
-    enc_out = _encoder(params, cfg, batch["frames"]) if cfg.family == "encdec" else None
+    enc_out = (_encoder(params, cfg, batch["frames"], gather) if cfg.family == "encdec"
+               else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = [dict() for _ in descs]
 
     def group(group_p, x, aux, enc_out):
+        group_p = gather(group_p, "layers")
         cs = []
         for j, desc in enumerate(descs):
             x, a, c = apply_layer_seq(group_p[f"l{j}"], desc, x, cfg, positions, causal=True,
@@ -320,16 +351,19 @@ def _chunk_ce(xc, lc, head):
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *, chunk: int = 512,
-            aux_weight: float = 0.01) -> tuple:
+            aux_weight: float = 0.01, gather=None) -> tuple:
     """Chunked softmax cross-entropy (twin of the reference's ``loss_fn``):
     the (B, S, V) logits are never held in f32, as each ``chunk`` of
     positions (shrunk until it divides S) makes its logits, sums its
     cross-entropy, and where grad mode is on recomputes them in the backward
     rather than keeping them.  A VLM's patch positions carry no loss.
+    ``gather``: as :func:`forward`'s (the top-level leaves gathered once).
 
     Returns ``(ce + aux_weight * aux, {"ce": ce, "aux": aux})``, ce the mean
     over the B * S labelled positions."""
-    out = forward(params, cfg, batch)
+    gather = gather or _no_gather
+    params = _gather_top(params, gather)
+    out = _forward(params, cfg, batch, False, gather)
     x, aux = out["x"], out["aux"]
     labels = batch["labels"]
     if cfg.family == "vlm":

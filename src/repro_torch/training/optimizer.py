@@ -69,9 +69,18 @@ def adamw_init(params, cfg: OptConfig) -> dict:
     return st
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over the leaves of each leaf's f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+def global_norm(tree, *, counted=None, reduce=None) -> torch.Tensor:
+    """sqrt of the sum over the leaves of each leaf's f32 sum of squares.
+
+    For a tree of blocks sharded over ranks: ``counted`` (a nest of bools
+    like ``tree``) keeps the leaves this rank counts, so that a block that
+    several ranks hold is counted once, and ``reduce`` sums the 0-d total
+    over the ranks before the root is taken."""
+    leaves = tree_leaves(tree)
+    keep = [True] * len(leaves) if counted is None else tree_leaves(counted)
+    total = sum((torch.sum(torch.square(x.float())) for x, k in zip(leaves, keep) if k),
+                torch.zeros((), dtype=torch.float32, device=leaves[0].device))
+    return torch.sqrt(total if reduce is None else reduce(total))
 
 
 # elements of a leaf's slice that adamw_update takes at a time: its f32
@@ -90,10 +99,13 @@ def _chunks(t: torch.Tensor) -> tuple:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptConfig) -> tuple:
+def adamw_update(params, grads, state, cfg: OptConfig, *, norm=None) -> tuple:
     """One AdamW step, in place: ``state["m"]``, ``state["v"]``, ``state["t"]``,
     ``state["master"]`` (with ``master_fp32``) and ``params`` are written
     leaf by leaf, and ``(params, state)`` returned.  ``grads`` is read only.
+    ``norm``: the gradients' global norm for the clip, where ``grads`` are
+    one rank's blocks of them (:func:`global_norm`'s ``counted`` and
+    ``reduce``); ``global_norm(grads)`` where ``None``.
 
     The reference's ``adamw_update`` is pure: it builds new moment trees and a
     whole f32 master tree while the old ones are still referenced.  Copied
@@ -113,7 +125,7 @@ def adamw_update(params, grads, state, cfg: OptConfig) -> tuple:
     """
     scale = None
     if cfg.grad_clip is not None:
-        gn = global_norm(grads)
+        gn = global_norm(grads) if norm is None else norm
         scale = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
     state["t"].add_(1)
     tf = state["t"].float()

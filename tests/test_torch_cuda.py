@@ -3,6 +3,7 @@ serving path against the port's own CPU path.  Every test here needs an NVIDIA c
 without one; on a machine with a card and no JAX, run
 ``python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``.
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -952,3 +953,166 @@ def test_multipod_pipeline_over_nccl_across_two_cards(cuda, tmp_path):
         codec = 4 * (mode == "ae_int8")
         assert sum(head["launches"]["bottleneck_compress"].values()) == codec, mode
         assert sum(tail["launches"]["bottleneck_decompress"].values()) == codec, mode
+
+
+# the sharded train step over nccl (ROADMAP A14b): depth-2 f32 llama3.2-3b at
+# full width, B 4 x S 512, on two cards at ("data", "model") = (1, 2) and
+# (2, 1), held to the one-card step at chip_smoke.py Z27's f32 bars (each
+# loss within 1e-6 relative, m after step 1 within 1e-5 of each leaf's max,
+# m and v after step 2 within 1e-4, each parameter within 2 lr a step plus
+# one ulp a step); jamba-v0.1-52b (moe=None) whole on four cards, B 4 x S
+# 4096, its losses finite and falling, step 1's within 1e-2 of a one-card
+# loss_fn under no_grad
+SHARDED_STEPS = 2
+SHARDED_LOSS_RTOL = 1e-6
+SHARDED_MOMENT = {"m1": 1e-5, "m2": 1e-4, "v2": 1e-4}
+JAMBA_LOSS_RTOL = 1e-2
+
+
+def _sharded_setup(arch, changes, b, s, dev):
+    from repro_torch.data.synthetic import token_batch
+    cfg = dataclasses.replace(get_config(arch), **{**SERVED.get(arch, {}), **changes})
+    batch = {k: torch.from_numpy(a).to(dev) for k, a in token_batch(b, s, cfg.vocab, seed=0).items()}
+    return cfg, batch
+
+
+def _one_card_steps(cfg, batch, dev) -> tuple:
+    """The one-card step's losses and its tree: the parameters after the
+    last step and the moments ``SHARDED_MOMENT`` names."""
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train import init_train_state, make_train_step
+    oc = OptConfig()
+    params, state = init_train_state(0, cfg, oc, device=dev)
+    step = make_train_step(cfg, oc)
+    losses, ref = [], {}
+    for i in range(SHARDED_STEPS):
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        ref.update({k: tree_map(torch.clone, state[k[0]]) for k in SHARDED_MOMENT
+                    if int(k[1:]) == i + 1})
+    ref["params"] = params
+    return losses, ref
+
+
+def _sharded_rank(rank, world, tmp, shape):
+    """A rank on card ``rank``: the one-card step on its own card (the same
+    seeded weights and batch on every card), then the train state cut into
+    its blocks on a ``shape`` ("data", "model") mesh, the sharded steps,
+    and each block's and moment's gap to its part of the one-card tree."""
+    from repro_torch.sharding import blocks
+    from repro_torch.sharding import rules
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    dev = LM.start_process_group("nccl", rank, world, f"file://{tmp}/rdv", device=f"cuda:{rank}",
+                                 timeout_s=240)
+    try:
+        mesh = LM.make_mesh_compat(shape, ("data", "model"))
+        cfg, batch = _sharded_setup("llama3.2-3b", dict(dtype="float32", n_layers=2), 4, 512, dev)
+        want, ref = _one_card_steps(cfg, batch, dev)
+        oc = OptConfig()
+        params, state = init_train_state(0, cfg, oc, device=dev, mesh=mesh)
+        step = make_train_step(cfg, oc, mesh=mesh)
+        specs = rules.param_specs(T.param_spec(cfg), mesh)
+        out = {"one_card": want, "losses": [], "moments": {}}
+        for i in range(SHARDED_STEPS):
+            reset_launches()
+            params, state, metrics = step(params, state, batch)
+            out["losses"].append(float(metrics["loss"]))
+            for key in ("m", "v"):
+                if f"{key}{i + 1}" in ref:
+                    out["moments"][f"{key}{i + 1}"] = max(
+                        float((blk - blocks.local_block(full, spec, mesh)).abs().max())
+                        / max(float(full.abs().max()), 1e-30)
+                        for blk, spec, full in zip(tree_leaves(state[key]), tree_leaves(specs),
+                                                   tree_leaves(ref[f"{key}{i + 1}"])))
+        out["launches"] = launch_counts()
+        size = 2 * oc.lr * SHARDED_STEPS
+        out["over_bound"] = 0.0
+        for blk, spec, full in zip(tree_leaves(params), tree_leaves(specs),
+                                   tree_leaves(ref["params"])):
+            want = blocks.local_block(full, spec, mesh)
+            ulp = torch.exp2((torch.frexp(want.abs() + size)[1] - 24).float())
+            bound = size + SHARDED_STEPS * ulp
+            out["over_bound"] = max(out["over_bound"], float(((blk - want).abs() / bound).max()))
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
+def test_sharded_step_over_nccl_on_two_cards(cuda, tmp_path, shape):
+    """Each rank on a card of its own, the collectives card to card: the
+    losses, moments and parameters of the one-card step at Z27's f32 bars,
+    and each rank's flash launches the code's (2 layers, each forward twice
+    under the recompute, one backward)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: nccl puts each rank on a card of its own")
+    ranks = LM.spawn_ranks(_sharded_rank, 2, (str(tmp_path), shape), timeout_s=600)
+    print(f"sharded step on two cards at {shape}:", ranks)
+    for r in ranks:
+        want = r["one_card"]
+        for got, loss in zip(r["losses"], want):
+            assert abs(got - loss) <= SHARDED_LOSS_RTOL * abs(loss), (r["losses"], want)
+        assert r["over_bound"] <= 1, r["over_bound"]
+        assert set(r["moments"]) == set(SHARDED_MOMENT)
+        for k, gap in r["moments"].items():
+            assert gap <= SHARDED_MOMENT[k], r["moments"]
+        assert r["launches"]["flash_attention"] == {**dict.fromkeys(r["launches"][
+            "flash_attention"], 0), "simt_f32": 4, "bwd_f32": 2}
+
+
+def _jamba_rank(rank, world, tmp):
+    """A rank of the whole jamba on card ``rank`` of a (2, 2) mesh: its
+    train state's bytes, 2 sharded steps' losses and launches, its peak."""
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    dev = LM.start_process_group("nccl", rank, world, f"file://{tmp}/rdv", device=f"cuda:{rank}",
+                                 timeout_s=240)
+    try:
+        mesh = LM.make_mesh_compat((2, 2), ("data", "model"))
+        cfg, batch = _sharded_setup("jamba-v0.1-52b", {}, 4, 4096, dev)
+        oc = OptConfig()
+        params, state = init_train_state(0, cfg, oc, device=dev, mesh=mesh)
+        torch.cuda.empty_cache()
+        out = {"state_gb": sum(t.numel() * t.element_size()
+                               for t in tree_leaves((params, state))) / 1e9, "losses": []}
+        step = make_train_step(cfg, oc, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(SHARDED_STEPS):
+            reset_launches()
+            params, state, metrics = step(params, state, batch)
+            out["losses"].append(float(metrics["loss"]))
+        out["launches"], out["peak_gb"] = launch_counts(), torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def test_jamba_trains_whole_over_nccl_on_four_cards(cuda, tmp_path):
+    """jamba-v0.1-52b with moe=None whole: 9.18 B parameters, about 92 GB of
+    train state, a quarter a card.  Step 1's loss is the one-card loss of
+    the same weights (bf16 rows split over cards round otherwise), the
+    losses fall, and each rank launches the scans and flash as the code
+    does: 4 attention and 28 Mamba layers, each forward twice, one
+    backward."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: jamba's whole train state does not fit fewer")
+    cfg, batch = _sharded_setup("jamba-v0.1-52b", {}, 4, 4096, cuda)
+    params = T.init_params(0, cfg, device=cuda)
+    with torch.no_grad():
+        want = float(T.loss_fn(params, cfg, batch)[0])
+    del params, batch
+    torch.cuda.empty_cache()
+    ranks = LM.spawn_ranks(_jamba_rank, 4, (str(tmp_path),), timeout_s=900)
+    print(f"jamba on four cards: one-card loss {want}", ranks)
+    for r in ranks:
+        losses = r["losses"]
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        assert abs(losses[0] - want) <= JAMBA_LOSS_RTOL * abs(want), (losses, want)
+        assert 21 <= r["state_gb"] <= 25, r["state_gb"]
+        assert r["launches"]["flash_attention"] == {**dict.fromkeys(r["launches"][
+            "flash_attention"], 0), "wgmma_bf16": 2 * 4, "bwd_bf16": 4}
+        assert r["launches"]["mamba_scan"] == {**dict.fromkeys(r["launches"]["mamba_scan"], 0),
+                                              "chain": 56, "bwd": 28}

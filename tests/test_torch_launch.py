@@ -1,11 +1,13 @@
 """The port's launchers and mesh constructors (``repro_torch.launch``) on the
 CPU: ``serve.main`` gives the tokens of a direct ``ServingEngine`` run,
-``train.main`` trains and checkpoints, both refuse a missing card and the
-sharded ``--mesh`` (ROADMAP A14b), and ``make_production_mesh`` keeps the
+``train.main`` trains and checkpoints, both refuse a missing card, the
+sharded ``--mesh`` refuses a world below the production mesh's ranks, and
+``make_production_mesh`` keeps the
 reference's shape rule (``repro.launch.mesh``, its ``jax.make_mesh``
 intercepted: a CPU test has no 256 devices).  About 10 s.
 """
 import math
+import socket
 
 import numpy as np
 import pytest
@@ -76,9 +78,19 @@ def test_launchers_refuse_a_missing_card(main, monkeypatch):
 
 
 @pytest.mark.parametrize("mesh", ["pod", "multipod"])
-def test_train_refuses_a_sharded_mesh(mesh):
-    with pytest.raises(NotImplementedError, match="A14b"):
+def test_train_refuses_a_sharded_mesh(mesh, monkeypatch):
+    """``--mesh`` starts the group from the environment, as ``torchrun``
+    sets it, and refuses a world below the production mesh's ranks."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for key, value in dict(RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, MASTER_ADDR="localhost",
+                           MASTER_PORT=port).items():
+        monkeypatch.setenv(key, str(value))
+    need = {"pod": 256, "multipod": 512}[mesh]
+    with pytest.raises(ValueError, match=f"needs {need} ranks; the world has 1"):
         train.main(["--arch", "llama3.2-3b", "--mesh", mesh, "--device", "cpu"])
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])

@@ -374,6 +374,7 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert len(files) > 20
     assert {"mesh.py", "serve.py", "train.py"} <= {f.name for f in files
                                                     if f.parent.name == "launch"}
+    assert {"rules.py", "blocks.py"} <= {f.name for f in files if f.parent.name == "sharding"}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):
