@@ -220,6 +220,24 @@ no install: it puts ``src/`` on the path itself).  Phases:
     2 within 1e-4; each rank's step ms (the first step on the host clock,
     the last under ``device_breakdown``), busy share, peak and the bytes its
     collectives moved, beside the one-process step's ms and peak;
+20d. (Z28) sharded serving (``sharding/parallel.py``; ``prefill``,
+    ``serve_step`` and ``ServingEngine`` with a mesh, the twin of the
+    reference's ``shard_fn=`` serving path): llama3.2-3b whole in bf16
+    (random weights, seed 0), B 4 x a 512-token prompt, 16 new tokens,
+    first through the one-process ``ServingEngine`` and a teacher-forced
+    replay (and the replay again with every embedding entry moved by one
+    rounding), then as four ``gloo`` ranks spawned on the one card, on
+    ("data", "model") = (1, 4) and (2, 2) meshes in one spawn, each drawing
+    its inference-profile blocks block by block, serving the requests
+    through ``ServingEngine(mesh=)`` and replaying the one-process tokens:
+    each step's logits and each rank's cache blocks held to the one-process
+    run's (2e-2 of the max; the one-ulp response printed beside it), the
+    served tokens equal on every rank (where they part from the one-process
+    tokens, the top-2 margins there printed), 28 ``wgmma_bf16`` flash forwards a rank at the prefill
+    (on its 6 or 12 query heads) and none at decode; each rank's prefill
+    ms, decode ms a token, busy share, peak and collective bytes beside the
+    one-process figures; then ``flash_attention`` at a rank's heads
+    (``SERVE_SHARDED_FLASH``) against its plain version, as Z2's rows;
 21. print the kernels' launch counts with their errors, times and bounds as
     one JSON line (the three backward kernels with their training runs'
     launches), then ``{"ok": true, "device": ...}``.
@@ -227,7 +245,7 @@ no install: it puts ``src/`` on the path itself).  Phases:
 Each path (phases 4-5, Z4, Z5, Z6, Z8-Z10, Z18-Z25, Z11, Z12's training and its
 deploy, Z13, Z14, each part of Z15, Z16, Z17 and its ``fit``, Z26's composition
 and each of its ranks' steps, Z27's one-process steps and each of its ranks'
-steps) runs with the
+steps, Z28's one-process run and each rank's served run, prefill and decode) runs with the
 launch counts set to 0 just before it and read just after; a served run's
 prefill and decode are counted apart as well, and ``flash_attention``'s
 launches by route (``wgmma_bf16`` for a bf16 model, ``simt_f32`` for an f32
@@ -542,6 +560,41 @@ SHARDED_TIMEOUT_S = 600
 # misses by the weights' scale
 SHARDED_LOSS_RTOL = {"bfloat16": 1e-2, "float32": 1e-6}
 SHARDED_MOMENT = {"step 1": 1e-5, "step 2": 1e-4}
+# Z28: sharded serving (sharding/parallel.py; prefill, serve_step and
+# ServingEngine with a mesh), the twin of the reference's shard_fn= serving:
+# llama3.2-3b whole at full width in bf16 (seed 0), B 4 x a 512-token prompt,
+# NEW_TOKENS new tokens, first the one-process ServingEngine and a
+# teacher-forced replay on the card, then four gloo ranks spawned on the one
+# card on ("data", "model") = (1, 4) and (2, 2) meshes in one spawn, each
+# serving the same requests through ServingEngine(mesh=) and the replay's
+# prefill and decode steps fed the one-process tokens
+SERVE_SHARDED_ARCH = "llama3.2-3b"
+# flash_attention at a rank's heads in sharded serving, held as FLASH_SHAPES'
+# rows are but after Z28, the last phase: with these rows in Z2, Z12's
+# finetune replay once read a gradient gap over its bar; that gap moves with
+# the allocator's state (ROADMAP C27), and running the rows last avoids the
+# one reading without explaining it.  llama3.2-3b on (1, 4) (24 / 4 query
+# heads over 8 / 4 kv heads) and on (2, 2) (2 rows a data shard, 12 over 4),
+# B 4 x 512 tokens; internvl2-76b on (1, 4) in the four-card test, 256
+# patches and 1024 tokens (16 over 2: a GQA group of 8)
+SERVE_SHARDED_FLASH = [
+    ("llama_tp4", 4, 512, 512, 6, 2, 128, True, None, torch.bfloat16),
+    ("llama_tp2x2", 2, 512, 512, 12, 4, 128, True, None, torch.bfloat16),
+    ("internvl_tp4", 4, 1280, 1280, 16, 2, 128, True, None, torch.bfloat16),
+]
+SERVE_SHARDED_MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
+SERVE_SHARDED_PROMPT = 512
+SERVE_SHARDED_TIMEOUT_S = 300
+# each step's logits against the one-process step's, relative to its max
+# |logit|, and each k, v cache block against its part of the one-process
+# cache, relative to the whole leaf's max: bf16 products over a rank's heads
+# and hidden units, the row-parallel sums added in f32 and rounded once
+# where one product rounds once in another order, so some bf16 roundings
+# differ and the layers carry them (on an H100: logits 1.88e-2 at (1, 4) and
+# 1.875e-2 at (2, 2), cache blocks up to 1.65e-2, the same in every run).
+# The one-process run's response to every embedding entry moved by one
+# rounding (3.6e-2 of max |logit|) is printed beside it, not a bar.
+SERVE_SHARDED_RTOL = 2e-2
 # its bar, relative to max |plain| of y and of the final state: f32 in
 # another order (fused multiply-adds, the kernel's own sum over d_state in
 # two lanes' partials) and exp as ex2.approx of a pre-scaled argument
@@ -3623,6 +3676,273 @@ def sharded_training() -> dict:
     return out
 
 
+def serving_rank(rank, world, tmp, cfg, prompts, ref) -> list:
+    """One rank of Z28, a spawned process on the one card: each of
+    ``SERVE_SHARDED_MESHES`` in turn (:func:`serving_run`)."""
+    launch_mesh.start_process_group("gloo", rank, world, f"file://{tmp}/rdv", device="cuda:0",
+                                    timeout_s=SERVE_SHARDED_TIMEOUT_S)
+    try:
+        rows = []
+        for name, shape in SERVE_SHARDED_MESHES.items():
+            mesh = launch_mesh.make_mesh_compat(shape, ("data", "model"))
+            rows.append(dict(serving_run(cfg, prompts, ref, mesh), rank=rank, mesh=name))
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def serving_run(cfg, prompts, ref, mesh) -> dict:
+    """This rank's blocks drawn block by block (``init_params(..., mesh=,
+    profile="inference")``), each held to its spec's block shape; the
+    requests served through ``ServingEngine(mesh=)``, counted; then the
+    replay: ``prefill`` and ``NEW_TOKENS`` decode steps under the mesh
+    fed the one-process tokens, each counted (launches, the collectives'
+    bytes) and on the host clock between barriers, the last step under
+    ``device_breakdown``; each step's logits and the cache blocks after the
+    prefill and after the last step held on the card to ``ref``, the
+    one-process run's (the parent's, mapped by CUDA IPC)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(0, cfg, device="cuda", mesh=mesh, profile="inference")
+    torch.cuda.synchronize()
+    specs = sharding_rules.param_specs(T.param_spec(cfg), mesh, profile="inference")
+    for blk, spec, full in zip(tree_leaves(params), tree_leaves(specs),
+                               tree_leaves(T.param_spec(cfg))):
+        if blk.shape != shard_blocks.local_block(full, spec, mesh).shape:
+            raise AssertionError(f"Z28: a block of {tuple(full.shape)} under {spec} is "
+                                 f"{tuple(blk.shape)}")
+    row = {"coord": shard_blocks.coordinates(mesh), "init_s": time.perf_counter() - t0,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "block_gb": sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9}
+    slots = SERVE_SHARDED_PROMPT + NEW_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [Request(i, p, max_new=NEW_TOKENS) for i, p in enumerate(prompts)]
+    dist.barrier()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ServingEngine(cfg, params, cache_slots=slots, device="cuda", mesh=mesh).run(reqs)
+    torch.cuda.synchronize()
+    row["run_ms"] = 1e3 * (time.perf_counter() - t0)
+    row["launches"] = launch_counts()
+    row["tokens"] = [r.out for r in reqs]
+    batch = {"tokens": torch.from_numpy(padded(prompts)).cuda()}
+    served = ref["tokens"]
+
+    def gap(got, want):
+        return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+
+    def cache_gaps(cache, want) -> dict:
+        cspecs = sharding_rules.cache_specs(want, mesh)
+        out = {}
+        for layer, leaves in want.items():
+            for key, full in leaves.items():
+                blk = shard_blocks.local_block(full, cspecs[layer][key], mesh)
+                mine = cache[layer][key]
+                if mine.shape != blk.shape:
+                    raise AssertionError(f"Z28: cache {key} block {tuple(mine.shape)}, want "
+                                         f"{tuple(blk.shape)}")
+                if key == "kv_pos":
+                    out[key] = int((mine != blk).sum())
+                else:
+                    out[key] = (float((mine.float() - blk.float()).abs().max())
+                                / float(full.float().abs().max()))
+        return out
+
+    with torch.inference_mode():
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        shard_blocks.reset_traffic()
+        t0 = time.perf_counter()
+        logits, cache, pos = T.prefill(params, cfg, batch, slots, mesh=mesh)
+        torch.cuda.synchronize()
+        row["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        row["prefill_launches"] = launch_counts()
+        row["prefill_traffic"] = dict(shard_blocks.traffic)
+        replay = [logits]
+        gaps = [gap(logits, ref["logits"][0])]
+        row["cache_prefill"] = cache_gaps(cache, ref["cache_prefill"])
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launches()
+        shard_blocks.reset_traffic()
+        steps = []
+        t0 = time.perf_counter()
+        for step in range(NEW_TOKENS - 1):
+            logits, cache = T.serve_step(params, cfg, cache, served[:, step:step + 1],
+                                         pos + step, mesh=mesh)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        row["decode_ms_per_token"] = 1e3 * (time.perf_counter() - t0) / (NEW_TOKENS - 1)
+        row["decode_traffic_per_token"] = {k: v // (NEW_TOKENS - 1)
+                                           for k, v in shard_blocks.traffic.items()}
+        last = NEW_TOKENS - 1
+        done = {}
+        row["decode_step_profile"] = device_breakdown(lambda: done.update(out=T.serve_step(
+            params, cfg, cache, served[:, last:last + 1], pos + last, mesh=mesh)))
+        logits, cache = done.pop("out")
+        steps.append(logits)
+        row["decode_launches"] = launch_counts()
+        gaps += [gap(lg, want) for lg, want in zip(steps, ref["logits"][1:])]
+        row["logits_rel_err"] = gaps
+        row["first_splits"] = first_splits(row["tokens"], ref, replay + steps)
+        row["cache_last"] = cache_gaps(cache, ref["cache_last"])
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, cache, steps
+    return row
+
+
+def first_splits(tokens, ref, replay) -> list:
+    """Where each batch row's served ``tokens`` first part from the
+    one-process run's: the step; the one-process logits' top-2 margin there
+    and this rank's teacher-forced replay's (fed the same tokens up to that
+    step, so the served run saw the same logits), and the replay's largest
+    gap in that row, each over the row's max |logit|; both picks."""
+    out = []
+    for b, (mine, want) in enumerate(zip(tokens, ref["tokens"].tolist())):
+        i = next((i for i, (x, y) in enumerate(zip(mine, want)) if x != y), None)
+        if i is None:
+            continue
+        w, g = ref["logits"][i][b].float(), replay[i][b].float()
+        top = float(w.abs().max())
+        wv, gv = w.topk(2).values, g.topk(2).values
+        out.append({"row": b, "step": i, "margin": float(wv[0] - wv[1]) / top,
+                    "replay_margin": float(gv[0] - gv[1]) / top,
+                    "gap": float((g - w).abs().max()) / top,
+                    "picks": [int(w.argmax()), int(g.argmax())]})
+    return out
+
+
+def sharded_serving() -> dict:
+    """Z28: llama3.2-3b whole in bf16, first served in one process through
+    ``ServingEngine`` (counted) and replayed, prefill and decode timed
+    apart, fed the served tokens (each step's logits and the cache after
+    the prefill and after the last step kept on the card, the weights then
+    freed); then, in one spawn, four gloo ranks on the card on each of
+    ``SERVE_SHARDED_MESHES`` (:func:`serving_run`).  Each rank's launches
+    are held to the code's (28 ``wgmma_bf16`` flash forwards at the
+    prefill, on its heads, none at decode), its replay's logits and cache
+    blocks to the one-process run's, and every rank's served tokens to its
+    "model" group's (one batch: every rank's)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = served_cfg(SERVE_SHARDED_ARCH)
+    per_prefill, _ = per_token_launches(cfg)
+    n_flash = per_prefill["flash_attention"]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, SERVE_SHARDED_PROMPT).astype(np.int32)
+               for _ in range(4)]
+    slots = SERVE_SHARDED_PROMPT + NEW_TOKENS
+    out = {"arch": SERVE_SHARDED_ARCH, "B": len(prompts), "prompt": SERVE_SHARDED_PROMPT,
+           "new_tokens": NEW_TOKENS, "meshes": SERVE_SHARDED_MESHES}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = T.init_params(0, cfg, device="cuda")
+    reqs = [Request(i, p, max_new=NEW_TOKENS) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ServingEngine(cfg, params, cache_slots=slots, device="cuda").run(reqs)
+    torch.cuda.synchronize()
+    one = {"run_ms": 1e3 * (time.perf_counter() - t0), "launches": launch_counts(),
+           "tokens": [r.out for r in reqs]}
+    check_flash_route("Z28 one-process served", one["launches"], cfg.dtype, n_flash)
+    served = torch.tensor(one["tokens"], dtype=torch.int32, device="cuda")
+    batch = {"tokens": torch.from_numpy(padded(prompts)).cuda()}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, pos = T.prefill(params, cfg, batch, slots)
+        torch.cuda.synchronize()
+        one["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        cache_prefill = tree_map(torch.clone, cache)
+        steps = [logits.float()]
+        t0 = time.perf_counter()
+        for step in range(NEW_TOKENS):
+            logits, cache = T.serve_step(params, cfg, cache, served[:, step:step + 1], pos + step)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        one["decode_ms_per_token"] = 1e3 * (time.perf_counter() - t0) / NEW_TOKENS
+        # the same replay with every embedding entry moved by one rounding:
+        # how far one bf16 rounding moves these logits (printed, not a bar)
+        flipped = {**params, "embed": ulp_flip(params["embed"])}
+        flogits, fcache, _ = T.prefill(flipped, cfg, batch, slots)
+        moved = [flogits.float()]
+
+        def cache_moved(a, b) -> float:
+            return max(float((a[layer][key].float() - b[layer][key].float()).abs().max())
+                       / float(b[layer][key].float().abs().max())
+                       for layer in b for key in ("k", "v"))
+        one["cache_one_ulp_response"] = cache_moved(fcache, cache_prefill)
+        for step in range(NEW_TOKENS):
+            flogits, fcache = T.serve_step(flipped, cfg, fcache, served[:, step:step + 1],
+                                           pos + step)
+            moved.append(flogits)
+        one["one_ulp_response"] = max(
+            float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(moved, steps))
+        one["cache_one_ulp_response"] = max(one["cache_one_ulp_response"],
+                                            cache_moved(fcache, cache))
+        del flipped, flogits, fcache, moved
+    one["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # outside inference mode, so that CUDA IPC can map them into the ranks
+    ref = {"tokens": served.clone(), "logits": torch.stack(steps).clone(),
+           "cache_prefill": tree_map(torch.clone, cache_prefill),
+           "cache_last": tree_map(torch.clone, cache)}
+    del params, cache, cache_prefill, steps, logits
+    torch.cuda.empty_cache()
+    out["one_process"] = one
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = launch_mesh.spawn_ranks(serving_rank, 4, (tmp, cfg, prompts, ref),
+                                        timeout_s=SERVE_SHARDED_TIMEOUT_S)
+    out["ranks_s"] = time.perf_counter() - t0
+    del ref
+    torch.cuda.empty_cache()
+    out["ranks"] = [row for rows in ranks for row in rows]
+    first = {name: next(r for r in out["ranks"] if r["mesh"] == name)
+             for name in SERVE_SHARDED_MESHES}
+    out["bars"] = {"logits": SERVE_SHARDED_RTOL, "cache": SERVE_SHARDED_RTOL}
+    for r in out["ranks"]:
+        what = f"Z28 {r['mesh']} rank {r['rank']}"
+        check_flash_route(f"{what} served", r["launches"], cfg.dtype, n_flash)
+        check_flash_route(f"{what} prefill", r["prefill_launches"], cfg.dtype, n_flash)
+        check_launches(f"{what} decode", r["decode_launches"], {})
+        if r["tokens"] != first[r["mesh"]]["tokens"]:
+            raise AssertionError(f"{what}: served other tokens than rank "
+                                 f"{first[r['mesh']]['rank']}")
+        worst = max(r["logits_rel_err"])
+        if not worst <= out["bars"]["logits"]:
+            raise AssertionError(f"{what}: logits off the one-process run's by {worst} of max "
+                                 f"|logit| (bar {out['bars']['logits']})")
+        for when in ("cache_prefill", "cache_last"):
+            gaps = r[when]
+            if gaps["kv_pos"] or max(gaps["k"], gaps["v"]) > out["bars"]["cache"]:
+                raise AssertionError(f"{what}: {when} blocks off the one-process cache: {gaps} "
+                                     f"(bar {out['bars']['cache']})")
+    for name in SERVE_SHARDED_MESHES:
+        rows = [r for r in out["ranks"] if r["mesh"] == name]
+        agree = sum(a == b for a, b in zip(sum(rows[0]["tokens"], []), sum(one["tokens"], [])))
+        out.setdefault("tokens_equal_one_process", {})[name] = agree
+        print(f"Z28 {name}: one-process prefill {one['prefill_ms']:.1f} ms, decode "
+              f"{one['decode_ms_per_token']:.2f} ms/token, peak {one['peak_gb']:.2f} GB, "
+              f"one-ulp response {one['one_ulp_response']:.2e} of max |logit| (cache "
+              f"{one['cache_one_ulp_response']:.2e}), bars {out['bars']}; served "
+              f"tokens equal to the one-process run's: {agree} of {NEW_TOKENS * len(prompts)}; "
+              "ranks " + "; ".join(
+                  f"{r['rank']}: prefill {r['prefill_ms']:.1f} ms, decode "
+                  f"{r['decode_ms_per_token']:.2f} ms/token, busy "
+                  f"{r['decode_step_profile']['busy_share']:.3f}, peak {r['peak_gb']:.2f} GB, "
+                  f"blocks {r['block_gb']:.2f} GB, prefill collectives {r['prefill_traffic']} "
+                  f"B, a decode step's {r['decode_traffic_per_token']} B, logits err "
+                  f"{max(r['logits_rel_err']):.2e}" for r in rows)
+              + f"; rank 0's first splits from the one-process tokens {rows[0]['first_splits']}",
+              flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def sum_launches(steps) -> dict:
     """``{kernel: {route: n}}`` summed over a list of such counts."""
     return {k: {r: sum(c[k][r] for c in steps) for r in steps[0][k]} for k in steps[0]}
@@ -3903,6 +4223,14 @@ def main() -> int:
     sharded = sharded_training()
     print("Z27 sharded training", json.dumps(sharded), flush=True)
     print(f"Z27 took {sharded['phase_s']:.1f} s", flush=True)
+    # Z28: sharded serving over four ranks on the card, and flash_attention
+    # at a rank's heads
+    serving_mesh = sharded_serving()
+    print("Z28 sharded serving", json.dumps(serving_mesh), flush=True)
+    for label, *shape in SERVE_SHARDED_FLASH:
+        flash_rows.append(check_flash(label, *shape, gen))
+        print("flash_attention", json.dumps(flash_rows[-1]), flush=True)
+    print(f"Z28 took {serving_mesh['phase_s']:.1f} s", flush=True)
 
     # the kernels line: launches from each kernel's main path
     counts_keys = list(launch_counts())
@@ -3949,7 +4277,12 @@ def main() -> int:
             **{f"Z26 {mode} {('head', 'tail')[r['stage']]}": r["modes"][mode]["launches"]
                for r in pipeline["ranks"] for mode in SP.WIRE_MODES},
             **{f"Z27 {run['dtype']} rank {r['rank']}, {SHARDED_STEPS} steps": sum_launches(
-                r["launches"]) for run in sharded["runs"] for r in run["ranks"]}}
+                r["launches"]) for run in sharded["runs"] for r in run["ranks"]},
+            "Z28 one-process served": serving_mesh["one_process"]["launches"],
+            **{f"Z28 {r['mesh']} rank {r['rank']} {part}": r[key]
+               for r in serving_mesh["ranks"]
+               for part, key in (("served", "launches"), ("prefill", "prefill_launches"),
+                                 ("decode", "decode_launches"))}}
 
     def entry(name, rows, replaces, headline):
         head = next(e for e in rows if e["shape"] == headline)

@@ -117,6 +117,48 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                             kv_pos: torch.Tensor, q_pos: torch.Tensor,
+                             window: Optional[int] = None) -> tuple:
+    """:func:`decode_attention` over a part of the cache's slots (a rank's
+    block of a slot axis cut over a mesh), unnormalised across parts:
+    ``(out, lse)``, out (B,1,H,D) f32 the softmax-weighted values over the
+    part's live slots, lse (B,H) f32 the log of its scores' exp-sum.  A
+    part with no live slot gives out 0 and lse -inf, not NaN.
+    :func:`combine` merges the parts as one softmax over every slot."""
+    b, _, h, d = q.shape
+    kh = k_cache.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, kh, g, d).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window is not None:
+        valid &= kv_pos > (q_pos[:, None] - window)
+    s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+    top = s.amax(dim=-1, keepdim=True)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    p = torch.exp(s - top)
+    total = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    out = out / torch.where(total > 0, total, torch.ones_like(total))
+    lse = (top + torch.log(total))[..., 0]
+    return out.reshape(b, 1, h, d), lse.reshape(b, h)
+
+
+def combine(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The parts of :func:`decode_attention_partial` merged: outs (n, ...,
+    D) and lses (n, ...) of n parts of the slots, each weighted by its
+    share of the exp-sum over all of them; f32.  Parts with lse -inf weigh
+    0, so a part must hold a slot once: a slot two parts hold counts twice."""
+    top = lses.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lses - top)
+    total = w.sum(dim=0)
+    out = (w[..., None] * outs).sum(dim=0)
+    return out / torch.where(total > 0, total, torch.ones_like(total))[..., None]
+
+
 # ---------------------------------------------------------------- linear ----
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     if x.dtype != w.dtype:           # JAX promotes a mixed product

@@ -16,12 +16,21 @@ frames, with rope and no mask, and a cross-attention after each decoder
 layer's self-attention, whose keys and values enter the decode cache once,
 at prefill (``ck``, ``cv``).  The VLM family puts its projected patch
 embeddings before the tokens.
+
+Under a mesh (``mesh=``, a ("data", "model") ``DeviceMesh``), ``prefill``
+and ``serve_step`` serve the dense and VLM families on each rank's blocks:
+the weights by ``rules.param_specs(..., profile="inference")``
+(:func:`init_params` draws them block by block), the decode cache by
+``rules.cache_specs`` (:func:`init_cache`), the batch's rows by
+``rules.batch_specs``, with ``sharding.parallel.Plan``'s collectives (the
+twin of the reference's ``shard_fn=`` serving path).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -32,6 +41,9 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (apply_rope, attention, decode_attention, dense,
                                        gelu_mlp, init_attn, init_dense, init_gelu_mlp,
                                        init_swiglu, layernorm, rmsnorm, rope_tables, swiglu)
+from repro_torch.sharding import blocks
+from repro_torch.sharding import parallel
+from repro_torch.sharding import rules as R
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,12 +122,20 @@ def init_layer(gen, desc: LayerDesc, cfg: ModelConfig, device) -> dict:
     return p
 
 
-def _init_tree(gen, cfg: ModelConfig, device) -> dict:
+def _no_cut(tree, path):
+    return tree
+
+
+def _init_tree(gen, cfg: ModelConfig, device, cut=_no_cut) -> dict:
+    """The parameter tree, each drawn leaf passed through ``cut(tree,
+    path)`` before it is kept: a group's leaves together as they are drawn,
+    before the groups are stacked (``sharding.blocks.Cut``)."""
     descs, n_groups = block_structure(cfg)
     d, dt = cfg.d_model, cfg.tdtype
 
     def one_group():
-        return {f"l{j}": init_layer(gen, descs[j], cfg, device) for j in range(len(descs))}
+        return cut({f"l{j}": init_layer(gen, descs[j], cfg, device) for j in range(len(descs))},
+                   "layers")
 
     def stack(trees):
         # each group's leaf is dropped once stacked, so the model is held
@@ -125,39 +145,48 @@ def _init_tree(gen, cfg: ModelConfig, device) -> dict:
         return torch.stack(trees)
 
     embed = torch.randn((cfg.vocab, d), generator=gen, dtype=torch.float32, device=device)
-    params = {
-        "embed": (embed * 0.02).to(dt),
-        "final_norm": _norm_params(d, dt, device),
-        "layers": stack([one_group() for _ in range(n_groups)]),
-    }
+    params = {"embed": cut((embed * 0.02).to(dt), "embed")}
+    params["final_norm"] = cut(_norm_params(d, dt, device), "final_norm")
+    params["layers"] = stack([one_group() for _ in range(n_groups)])
     if not cfg.tie_embeddings:
-        params["head"] = init_dense(gen, d, cfg.vocab, dt, device)
+        params["head"] = cut(init_dense(gen, d, cfg.vocab, dt, device), "head")
     if cfg.family == "encdec":
         enc_desc = LayerDesc("attn", "dense")
         pos = torch.randn((cfg.n_frames, d), generator=gen, dtype=torch.float32, device=device)
         params["enc"] = {
-            "proj": init_dense(gen, cfg.d_frontend, d, dt, device),
-            "pos": (pos * 0.01).to(dt),
-            "layers": stack([init_layer(gen, enc_desc, cfg, device)
+            "proj": cut(init_dense(gen, cfg.d_frontend, d, dt, device), "enc/proj"),
+            "pos": cut((pos * 0.01).to(dt), "enc/pos"),
+            "layers": stack([cut(init_layer(gen, enc_desc, cfg, device), "enc/layers")
                              for _ in range(cfg.n_enc_layers)]),
-            "final_norm": _norm_params(d, dt, device),
+            "final_norm": cut(_norm_params(d, dt, device), "enc/final_norm"),
         }
     if cfg.family == "vlm":
-        params["projector"] = {
+        params["projector"] = cut({
             "w1": init_dense(gen, cfg.d_frontend, d, dt, device),
             "b1": torch.zeros((d,), dtype=dt, device=device),
             "w2": init_dense(gen, d, d, dt, device),
             "b2": torch.zeros((d,), dtype=dt, device=device),
-        }
+        }, "projector")
     return params
 
 
-def init_params(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
+def init_params(seed: int, cfg: ModelConfig, *, device="cuda", mesh=None,
+                profile: str = "train") -> dict:
     """Random parameters in the reference's tree, from a ``torch.Generator``
-    seeded with ``seed``, made on ``device``."""
+    seeded with ``seed``, made on ``device``.
+
+    With a ``mesh``, this rank's blocks of them under
+    ``rules.param_specs(..., profile)``: the same draws in the same order,
+    each group's leaves cut to their blocks as soon as they are drawn and
+    only then stacked (as ``embed``, ``head`` and the projector are), so the
+    result is bit for bit ``blocks.shard_tree`` of the whole tree and no
+    whole stacked leaf is ever held."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return _init_tree(gen, cfg, dev)
+    if mesh is None:
+        return _init_tree(gen, cfg, dev)
+    specs = R.param_specs(param_spec(cfg), mesh, profile=profile)
+    return _init_tree(gen, cfg, dev, blocks.Cut(specs, mesh))
 
 
 def param_spec(cfg: ModelConfig) -> dict:
@@ -166,38 +195,87 @@ def param_spec(cfg: ModelConfig) -> dict:
     return _init_tree(None, cfg, torch.device("meta"))
 
 
+# the plans of the last few (config, mesh) pairs served, each holding its
+# mesh, so that no other mesh takes its id while it is kept
+_plans: dict = {}
+
+
+def _plan(cfg: ModelConfig, mesh):
+    """``None`` without a mesh, else this rank's ``parallel.Plan`` on it for
+    the inference profile's blocks (a config it does not serve raises),
+    built once for each config and mesh."""
+    if mesh is None:
+        return None
+    key = (cfg, id(mesh))
+    if key not in _plans:
+        if len(_plans) >= 8:
+            _plans.clear()
+        _plans[key] = parallel.Plan(
+            cfg, mesh, R.param_specs(param_spec(cfg), mesh, profile="inference"))
+    return _plans[key]
+
+
 # ----------------------------------------------------------- full-seq fwd ----
 def _qkv(p, x, cfg, cross_src=None):
+    """q (B,S,H,hd), k and v (B,Sk,K,hd) for the heads whose columns ``p``
+    holds: every head, or under a mesh this rank's."""
     b, s, _ = x.shape
     hd = cfg.hd
     src = x if cross_src is None else cross_src
-    kh = cfg.n_heads if cross_src is not None else cfg.n_kv_heads
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, cfg.n_heads, hd)
-    k = dense(src, p["wk"], p.get("bk")).reshape(b, src.shape[1], kh, hd)
-    v = dense(src, p["wv"], p.get("bv")).reshape(b, src.shape[1], kh, hd)
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, -1, hd)
+    k = dense(src, p["wk"], p.get("bk")).reshape(b, src.shape[1], -1, hd)
+    v = dense(src, p["wv"], p.get("bv")).reshape(b, src.shape[1], -1, hd)
     return q, k, v
 
 
-def _attn_seq(p, x, cfg, positions, *, causal, window, cross_src=None):
+def _attn_seq(p, x, cfg, positions, *, causal, window, cross_src=None, par=None, path=""):
+    """Attention over a sequence.  Under a plan ``par`` (``path``: the
+    layer's ``layers/l{j}/attn``), on this rank's heads with ``wo``'s rows
+    summed over "model", or where its heads are not whole blocks on the
+    layer's leaves all-gathered; the returned k and v hold the heads it
+    computed."""
+    heads = par is not None and par.heads(path)
+    if par is not None and not heads:
+        p = par.whole_leaves(p, path)
     q, k, v = _qkv(p, x, cfg, cross_src)
     if cross_src is None:  # rope only for self-attention
         cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     out = attention(q, k, v, causal=causal, window=window)
     b, s = x.shape[0], x.shape[1]
-    return dense(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"]), (k, v)
+    out = out.reshape(b, s, -1)
+    if heads:
+        return par.row_sum(out, p["wo"], x.dtype), (k, v)
+    return dense(out, p["wo"]), (k, v)
+
+
+def _ffn(p, h, cfg, par=None, path=""):
+    """The dense FFN.  Under a plan ``par`` the SwiGLU on this rank's hidden
+    units, ``w_down``'s rows summed over "model" (or on the leaves
+    all-gathered where they are not cut so)."""
+    if cfg.family == "encdec":
+        return gelu_mlp(h, p)
+    if par is None:
+        return swiglu(h, p)
+    if par.ffn_split(path):
+        return par.row_sum(F.silu(dense(h, p["w_gate"])) * dense(h, p["w_up"]), p["w_down"],
+                           h.dtype)
+    return swiglu(h, par.whole_leaves(p, path))
 
 
 def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
-                    window=None, enc_out=None, collect_cache=False):
+                    window=None, enc_out=None, collect_cache=False, par=None, path=""):
     """One sublayer over a full sequence.  Returns (x, aux, cache_entry).
     A cross layer attends to ``enc_out`` where it is given, and skips its
-    cross-attention where it is not, as the reference does."""
+    cross-attention where it is not, as the reference does.  ``par``,
+    ``path`` (``layers/l{j}``): a rank's plan under a mesh (dense and VLM
+    layers only)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = {}
     h = _apply_norm(p["norm1"], x, cfg)
     if desc.mixer == "attn":
-        att, (k, v) = _attn_seq(p["attn"], h, cfg, positions, causal=causal, window=window)
+        att, (k, v) = _attn_seq(p["attn"], h, cfg, positions, causal=causal, window=window,
+                                par=par, path=f"{path}/attn")
         if collect_cache:
             cache["k"], cache["v"] = k, v
     elif desc.mixer == "mamba":
@@ -219,7 +297,7 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
         x = x + catt
     h = _apply_norm(p["norm2"], x, cfg)
     if desc.ffn == "dense":
-        f = gelu_mlp(h, p["ffn"]) if cfg.family == "encdec" else swiglu(h, p["ffn"])
+        f = _ffn(p["ffn"], h, cfg, par, f"{path}/ffn")
     elif desc.ffn == "moe":
         f, aux = moe_mod.moe_ffn(h, p["ffn"], cfg.moe)
     else:  # rwkv channel mix
@@ -270,18 +348,28 @@ def _encoder(params, cfg, frames, gather=_no_gather):
     return _apply_norm(enc["final_norm"], x, cfg)
 
 
-def embed_inputs(params, cfg, batch):
+def embed_inputs(params, cfg, batch, *, par=None):
     """Token (+frontend) embedding -> (x (B,S,D), positions (S,), enc_out=None).
 
     A VLM puts ``tanh(pe @ w1 + b1) @ w2 + b2`` of its patch embeddings, in
     the embedding's dtype, before the tokens, and its positions run over
-    both; the encoder-decoder's encoder runs in :func:`forward`."""
+    both; the encoder-decoder's encoder runs in :func:`forward`.  Under a
+    plan ``par`` (the sharded prefill's), from this rank's column blocks of
+    ``embed`` and the projector, each output all-gathered over "model"."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
+    if par is None:
+        x = params["embed"][tokens.long()]
+    else:
+        x = par.embed(params["embed"], tokens)
     if cfg.family == "vlm":
-        pj = params["projector"]
-        h = torch.tanh(dense(batch["patch_embeds"], pj["w1"], pj["b1"]))
-        x = torch.cat([dense(h, pj["w2"], pj["b2"]).to(x.dtype), x], dim=1)
+        pj, pe = params["projector"], batch["patch_embeds"]
+        if par is None:
+            h = torch.tanh(dense(pe, pj["w1"], pj["b1"]))
+            y = dense(h, pj["w2"], pj["b2"])
+        else:
+            h = torch.tanh(par.whole(pe, pj["w1"], pj["b1"], "projector/w1", "projector/b1"))
+            y = par.whole(h, pj["w2"], pj["b2"], "projector/w2", "projector/b2")
+        x = torch.cat([y.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions, None
 
@@ -338,7 +426,13 @@ def _forward(params, cfg, batch, collect_cache, gather):
     return {"x": x, "aux": aux, "cache": cache, "positions": positions}
 
 
-def logits_from_x(params, cfg, x):
+def logits_from_x(params, cfg, x, *, par=None):
+    """``x @ head`` (``embed.T`` where tied).  Under a plan ``par`` (the
+    sharded prefill's and decode's), from this rank's block: ``head``'s
+    vocab columns all-gathered over "model", a tied ``embed``'s d_model
+    block summed."""
+    if par is not None:
+        return par.logits(params, x)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x @ head
 
@@ -388,9 +482,23 @@ def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
-               device="cuda") -> dict:
-    """Empty decode cache (group-stacked leading dim)."""
-    return _cache_tree(cfg, batch, seq_len, dtype, resolve_device(device))
+               device="cuda", mesh=None) -> dict:
+    """Empty decode cache (group-stacked leading dim) for ``batch`` rows.
+    Under a ``mesh``, this rank's blocks of it by ``rules.cache_specs``
+    (its rows over "data", its slots over "model", every kv head), as a
+    ``parallel.ShardedCache`` that knows the whole cache's slot count."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return _cache_tree(cfg, batch, seq_len, dtype, dev)
+    parallel.refuse(cfg)
+    meta = cache_spec(cfg, batch, seq_len, dtype)
+    specs = R.cache_specs(meta, mesh)
+
+    def block(path, shape):
+        layer, key = path.split("/")
+        return tuple(blocks.local_block(meta[layer][key], specs[layer][key], mesh).shape)
+    return parallel.ShardedCache(_cache_tree(cfg, batch, seq_len, dtype, dev, block),
+                                 cache_len_for(cfg, seq_len))
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> dict:
@@ -399,52 +507,58 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, dtype=None) -> dict:
     return _cache_tree(cfg, batch, seq_len, dtype, torch.device("meta"))
 
 
-def _cache_tree(cfg: ModelConfig, batch: int, seq_len: int, dtype, dev) -> dict:
+def _whole(path, shape):
+    return shape
+
+
+def _cache_tree(cfg: ModelConfig, batch: int, seq_len: int, dtype, dev, block=_whole) -> dict:
+    """The cache, each leaf of ``block(path, whole shape)``'s shape (a
+    rank's block under a mesh)."""
     descs, n_groups = block_structure(cfg)
     dt = dtype or cfg.tdtype
     sc = cache_len_for(cfg, seq_len)
     hd = cfg.hd
 
-    def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    def per_layer(desc: LayerDesc):
+    def per_layer(j, desc: LayerDesc):
+        def zeros(key, shape, dtype):
+            return torch.zeros(block(f"l{j}/{key}", shape), dtype=dtype, device=dev)
         c = {}
         if desc.mixer == "attn":
-            c["k"] = zeros((n_groups, batch, sc, cfg.n_kv_heads, hd), dt)
-            c["v"] = zeros((n_groups, batch, sc, cfg.n_kv_heads, hd), dt)
-            c["kv_pos"] = torch.full((n_groups, batch, sc), -1, dtype=torch.int32, device=dev)
+            c["k"] = zeros("k", (n_groups, batch, sc, cfg.n_kv_heads, hd), dt)
+            c["v"] = zeros("v", (n_groups, batch, sc, cfg.n_kv_heads, hd), dt)
+            c["kv_pos"] = zeros("kv_pos", (n_groups, batch, sc), torch.int32).fill_(-1)
         elif desc.mixer == "mamba":
             di, ds, dc = mamba_mod.d_inner(cfg), cfg.mamba_d_state, cfg.mamba_d_conv
-            c["conv"] = zeros((n_groups, batch, dc - 1, di), torch.float32)
-            c["ssm"] = zeros((n_groups, batch, di, ds), torch.float32)
+            c["conv"] = zeros("conv", (n_groups, batch, dc - 1, di), torch.float32)
+            c["ssm"] = zeros("ssm", (n_groups, batch, di, ds), torch.float32)
         else:  # rwkv
             nh = cfg.d_model // cfg.rwkv_head_dim
-            c["tm_prev"] = zeros((n_groups, batch, cfg.d_model), torch.float32)
-            c["cm_prev"] = zeros((n_groups, batch, cfg.d_model), torch.float32)
-            c["wkv"] = zeros((n_groups, batch, nh, cfg.rwkv_head_dim, cfg.rwkv_head_dim),
+            c["tm_prev"] = zeros("tm_prev", (n_groups, batch, cfg.d_model), torch.float32)
+            c["cm_prev"] = zeros("cm_prev", (n_groups, batch, cfg.d_model), torch.float32)
+            c["wkv"] = zeros("wkv", (n_groups, batch, nh, cfg.rwkv_head_dim, cfg.rwkv_head_dim),
                              torch.float32)
         if desc.cross:
-            c["ck"] = zeros((n_groups, batch, cfg.n_frames, cfg.n_heads, hd), dt)
-            c["cv"] = zeros((n_groups, batch, cfg.n_frames, cfg.n_heads, hd), dt)
+            c["ck"] = zeros("ck", (n_groups, batch, cfg.n_frames, cfg.n_heads, hd), dt)
+            c["cv"] = zeros("cv", (n_groups, batch, cfg.n_frames, cfg.n_heads, hd), dt)
         return c
 
-    return {f"l{j}": per_layer(d) for j, d in enumerate(descs)}
+    return {f"l{j}": per_layer(j, d) for j, d in enumerate(descs)}
 
 
-def _attn_decode(p, h, cfg, cache_l, pos, window):
+def _attn_decode(p, h, cfg, cache_l, pos, window, par=None, path="", sc=None):
     """h: (B,1,D); cache_l: {'k','v','kv_pos'} (B,Sc,K,hd), written in place.
     ``pos``: the new token's position, an int, or a (B,) int32 tensor of
-    each row's own (``serving.continuous.serve_step_multi``)."""
+    each row's own (``serving.continuous.serve_step_multi``).  Under a plan
+    ``par``, ``cache_l`` is this rank's block of a cache of ``sc`` slots,
+    and the attention runs as :meth:`parallel.Plan.decode_attend` says."""
     b = h.shape[0]
     hd = cfg.hd
-    q = dense(h, p["wq"], p.get("bq")).reshape(b, 1, cfg.n_heads, hd)
-    k = dense(h, p["wk"], p.get("bk")).reshape(b, 1, cfg.n_kv_heads, hd)
-    v = dense(h, p["wv"], p.get("bv")).reshape(b, 1, cfg.n_kv_heads, hd)
-    # the reference writes slot pos % sc with dynamic_update_slice (a row's
-    # own slot with a scatter) into a new cache; the port writes the same
-    # slots of the one cache in place
-    sc = cache_l["k"].shape[1]
+    heads = par is not None and par.heads(path)
+    if par is not None and not heads:
+        p = par.whole_leaves(p, path)
+    q = dense(h, p["wq"], p.get("bq")).reshape(b, 1, -1, hd)
+    k = dense(h, p["wk"], p.get("bk")).reshape(b, 1, -1, hd)
+    v = dense(h, p["wv"], p.get("bv")).reshape(b, 1, -1, hd)
     if isinstance(pos, int):
         positions, rows = torch.tensor([pos], device=h.device), slice(None)
         q_pos = torch.full((b,), pos, dtype=torch.int32, device=h.device)
@@ -453,6 +567,16 @@ def _attn_decode(p, h, cfg, cache_l, pos, window):
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if par is not None:
+        out = par.decode_attend(q, k, v, cache_l, sc, pos, q_pos, window, heads)
+        out = out.reshape(b, 1, -1)
+        if heads:
+            return par.row_sum(out, p["wo"], h.dtype)
+        return dense(out, p["wo"])
+    # the reference writes slot pos % sc with dynamic_update_slice (a row's
+    # own slot with a scatter) into a new cache; the port writes the same
+    # slots of the one cache in place
+    sc = cache_l["k"].shape[1]
     slot = pos % sc
     cache_l["k"][rows, slot] = k[:, 0]
     cache_l["v"][rows, slot] = v[:, 0]
@@ -461,12 +585,15 @@ def _attn_decode(p, h, cfg, cache_l, pos, window):
     return dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
 
 
-def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
+def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window, par=None, path="",
+                       sc=None):
     """One sublayer over one token; ``cache_l`` (this group's views) is
-    updated in place.  ``pos``: an int, or a (B,) tensor (``_attn_decode``)."""
+    updated in place.  ``pos``: an int, or a (B,) tensor (``_attn_decode``).
+    ``par``, ``path`` (``layers/l{j}``), ``sc``: a rank's plan under a mesh
+    and its cache's slot count (dense and VLM layers only)."""
     h = _apply_norm(p["norm1"], x, cfg)
     if desc.mixer == "attn":
-        att = _attn_decode(p["attn"], h, cfg, cache_l, pos, window)
+        att = _attn_decode(p["attn"], h, cfg, cache_l, pos, window, par, f"{path}/attn", sc)
     elif desc.mixer == "mamba":
         att, (conv, ssm) = mamba_mod.mamba_step(
             p["mamba"], h, (cache_l["conv"], cache_l["ssm"]), cfg)
@@ -490,7 +617,7 @@ def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
         x = x + dense(catt.reshape(b, 1, cfg.n_heads * cfg.hd), p["cross"]["wo"])
     h = _apply_norm(p["norm2"], x, cfg)
     if desc.ffn == "dense":
-        f = gelu_mlp(h, p["ffn"]) if cfg.family == "encdec" else swiglu(h, p["ffn"])
+        f = _ffn(p["ffn"], h, cfg, par, f"{path}/ffn")
     elif desc.ffn == "moe":
         f, _ = moe_mod.moe_ffn(h, p["ffn"], cfg.moe)
     else:
@@ -499,32 +626,61 @@ def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window):
     return x + f
 
 
-def serve_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor, pos):
+def serve_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor, pos, *,
+               mesh=None):
     """One decode step.  token: (B,1) int; pos: the new token's position, an
     int, or a (B,) int32 tensor of each row's own (``_attn_decode``).
 
     Returns (logits (B,V) f32, cache).  Unlike the reference, which returns
     a new cache, the port updates ``cache`` in place and returns it.
+
+    Under a ``mesh`` (the reference's ``shard_fn=``): ``params`` and
+    ``cache`` are this rank's blocks (:func:`init_params`,
+    :func:`prefill`), ``token`` and ``pos`` the whole batch's on every rank;
+    the rank computes its rows (``rules.batch_specs``) and returns the whole
+    (B, V) logits; ``pos`` is an int.
     """
     descs, n_groups = block_structure(cfg)
     if not torch.is_tensor(pos):
         pos = int(pos)
-    x = params["embed"][token.long()]
+    par, sc, b = _plan(cfg, mesh), None, token.shape[0]
+    if par is not None:
+        if not isinstance(cache, parallel.ShardedCache):
+            raise ValueError("under a mesh the cache is a rank's blocks: make it with "
+                             "init_cache(..., mesh=) or prefill(..., mesh=)")
+        if torch.is_tensor(pos):
+            raise ValueError("under a mesh every row decodes at one position, an int: the "
+                             "continuous batcher's per-row positions are not served sharded")
+        par.check(token.device)
+        lo, hi = par.rows(b)
+        token, sc = token[lo:hi], cache.slots
+    x = params["embed"][token.long()] if par is None else par.embed(params["embed"], token)
     for g in range(n_groups):
         group_p, cache_g = _group(params["layers"], g), _group(cache, g)
         for j, desc in enumerate(descs):
             x = apply_layer_decode(group_p[f"l{j}"], desc, x, cfg, cache_g[f"l{j}"], pos,
-                                   cfg.sliding_window)
+                                   cfg.sliding_window, par, f"layers/l{j}", sc)
     x = _apply_norm(params["final_norm"], x, cfg)
-    logits = logits_from_x(params, cfg, x)[:, 0, :]
-    return logits.float(), cache
+    logits = logits_from_x(params, cfg, x, par=par)[:, 0, :].float()
+    if par is not None:
+        logits = par.gather_rows(logits, b)
+    return logits, cache
 
 
-def prefill(params, cfg: ModelConfig, batch: dict, cache_seq_len: int):
+def prefill(params, cfg: ModelConfig, batch: dict, cache_seq_len: int, *, mesh=None):
     """Run the full prompt, build a decode cache of ``cache_seq_len`` slots.
 
     Returns (last-token logits (B,V), cache, next_pos).
+
+    Under a ``mesh`` (the reference's ``shard_fn=``): ``params`` are this
+    rank's blocks and ``batch`` the whole batch on every rank; the rank
+    runs its rows (``rules.batch_specs``) on its heads and hidden units
+    (``parallel.Plan``), the ``flash_attention`` kernel on its local heads,
+    and returns the whole logits and its blocks of the cache
+    (:func:`init_cache`).
     """
+    if mesh is not None:
+        return _prefill_sharded(params, cfg, batch, cache_seq_len, _plan(cfg, mesh))
     out = forward(params, cfg, batch, collect_cache=True)
     x = out["x"]
     s_in = x.shape[1]
@@ -532,13 +688,11 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_seq_len: int):
     raw = out["cache"]
     descs, n_groups = block_structure(cfg)
     cache = init_cache(cfg, x.shape[0], cache_seq_len, device=x.device)
-    sc = cache_len_for(cfg, cache_seq_len)
+    src_pos, slots = _prefill_slots(cache_len_for(cfg, cache_seq_len), s_in, x.device)
+    take = len(src_pos)
     for j, desc in enumerate(descs):
         cj, rj = cache[f"l{j}"], raw[f"l{j}"]
         if desc.mixer == "attn":
-            take = min(sc, s_in)
-            src_pos = torch.arange(s_in - take, s_in, device=x.device)
-            slots = src_pos % sc
             cj["k"][:, :, slots] = rj["k"][:, :, s_in - take:]
             cj["v"][:, :, slots] = rj["v"][:, :, s_in - take:]
             cj["kv_pos"][:, :, slots] = src_pos.to(torch.int32)
@@ -555,3 +709,41 @@ def prefill(params, cfg: ModelConfig, batch: dict, cache_seq_len: int):
             cj["ck"], cj["cv"] = rj["ck"], rj["cv"]
     return logits, cache, s_in
 
+
+def _prefill_slots(sc: int, s_in: int, device) -> tuple:
+    """The positions a prefill of ``s_in`` keeps in a cache of ``sc``
+    slots (its last ``min(sc, s_in)``), and the slot of each."""
+    take = min(sc, s_in)
+    src_pos = torch.arange(s_in - take, s_in, device=device)
+    return src_pos, src_pos % sc
+
+
+def _prefill_sharded(params, cfg, batch, cache_seq_len, par):
+    """:func:`prefill` under ``par``: a group at a time, each attention
+    layer's k and v sent to the ranks whose cache slots they fill
+    (:meth:`parallel.Plan.prefill_kv`) as soon as they are made."""
+    b = batch["tokens"].shape[0]
+    par.check(batch["tokens"].device)
+    lo, hi = par.rows(b)
+    x, positions, _ = embed_inputs(params, cfg, {k: v[lo:hi] for k, v in batch.items()},
+                                   par=par)
+    s_in = x.shape[1]
+    cache = init_cache(cfg, b, cache_seq_len, device=x.device, mesh=par.mesh)
+    src_pos, slots = _prefill_slots(cache.slots, s_in, x.device)
+    descs, n_groups = block_structure(cfg)
+    for g, group_p in enumerate(_groups(params["layers"], n_groups)):
+        cache_g = _group(cache, g)
+        for j, desc in enumerate(descs):
+            path = f"layers/l{j}"
+            x, _, c = apply_layer_seq(group_p[f"l{j}"], desc, x, cfg, positions,
+                                      window=cfg.sliding_window, collect_cache=True, par=par,
+                                      path=path)
+            k, v, kv_pos = par.prefill_kv(c.pop("k"), c.pop("v"), src_pos, slots, cache.slots,
+                                          par.heads(f"{path}/attn"))
+            cj = cache_g[f"l{j}"]
+            cj["k"].copy_(k)
+            cj["v"].copy_(v)
+            cj["kv_pos"].copy_(kv_pos.expand_as(cj["kv_pos"]))
+    x = _apply_norm(params["final_norm"], x, cfg)
+    logits = logits_from_x(params, cfg, x[:, -1:, :], par=par)[:, 0, :]
+    return par.gather_rows(logits, b), cache, s_in

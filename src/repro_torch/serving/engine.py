@@ -89,12 +89,23 @@ class ServingEngine:
 
     ``params`` must lie on ``device``.  As in the reference, prompts are
     left-padded with token 0 and the pads are not masked.
+
+    With a ``mesh`` (the reference's ``shard_fn=``; a ("data", "model")
+    ``DeviceMesh``), every rank runs the engine on the same requests with
+    ``params`` its blocks under ``rules.param_specs(..., profile=
+    "inference")`` (``transformer.init_params(..., mesh=, profile=
+    "inference")``): each data shard serves the rows ``batch_specs`` gives
+    it, the decode cache is each rank's blocks, and every rank gets the
+    whole logits, so every request comes back with its tokens, the same on
+    every rank.
     """
 
-    def __init__(self, cfg: ModelConfig, params, *, cache_slots: int = 256, device="cuda"):
+    def __init__(self, cfg: ModelConfig, params, *, cache_slots: int = 256, device="cuda",
+                 mesh=None):
         self.cfg, self.params = cfg, params
         self.cache_slots = cache_slots
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     def run(self, requests: List[Request]) -> List[Request]:
         cfg = self.cfg
@@ -114,7 +125,8 @@ class ServingEngine:
             batch["frames"] = torch.zeros((b, cfg.n_frames, cfg.d_frontend),
                                           dtype=cfg.tdtype, device=self.device)
         with torch.inference_mode():
-            logits, cache, pos = T.prefill(self.params, cfg, batch, self.cache_slots)
+            logits, cache, pos = T.prefill(self.params, cfg, batch, self.cache_slots,
+                                           mesh=self.mesh)
             max_new = max(r.max_new for r in requests)
             token = _greedy(logits)
             for step in range(max_new):
@@ -122,6 +134,7 @@ class ServingEngine:
                 for i, r in enumerate(requests):
                     if step < r.max_new:
                         r.out.append(host[i])
-                logits, cache = T.serve_step(self.params, cfg, cache, token, pos + step)
+                logits, cache = T.serve_step(self.params, cfg, cache, token, pos + step,
+                                             mesh=self.mesh)
                 token = _greedy(logits)
         return requests

@@ -11,6 +11,11 @@ at its mesh coordinates.  A group-stacked leaf's leading axis is never cut
 
 * :func:`local_block`, :func:`shard_tree`, :func:`gather_tree`: a leaf's
   block at this rank, and the inverse pair over a whole nest.
+* :class:`Cut`: the hook of ``transformer.init_params(mesh=)`` that cuts
+  each group's draw into this rank's blocks before the groups are stacked.
+* :func:`all_gather`, :func:`all_gather_last`, :func:`sum_f32`,
+  :func:`all_to_all`: the activation collectives of the serving path
+  (``sharding/parallel.py``), one group of the mesh each.
 * :class:`GatherBlocks`: blocks all-gathered into their full leaves, whose
   backward gives each block the sum over every rank of its leaf's gradient
   (a reduce-scatter over the axes that shard the leaf, then an all-reduce
@@ -35,8 +40,9 @@ from repro_torch.sharding.rules import P, _axes, mesh_axes, mesh_axis_sizes
 from repro_torch.tree import tree_leaves, tree_map
 
 # bytes of the full operand of every collective since the last reset: the
-# gathered leaf, the gradient reduce-scattered, the tensor all-reduced
-traffic = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+# gathered leaf, the gradient reduce-scattered, the tensor all-reduced, the
+# tensor each rank sends and receives in an all-to-all
+traffic = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0, "all_to_all": 0}
 
 
 def reset_traffic() -> None:
@@ -136,6 +142,46 @@ def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
+def all_gather(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` of ``group``, stacked in its rank order:
+    (n, *t.shape)."""
+    return _all_gather(t.reshape(-1), group, n).view(n, *t.shape)
+
+
+def all_gather_last(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` of ``group`` joined on the last dim, in its
+    rank order: the whole of a tensor whose last dim the ranks split."""
+    if n == 1:
+        return t
+    parts = all_gather(t, group, n)
+    return parts.movedim(0, -2).reshape(*t.shape[:-1], n * t.shape[-1])
+
+
+def sum_f32(t: torch.Tensor, group, n: int, dtype=None) -> torch.Tensor:
+    """``t`` summed over ``group`` in f32, then cast once to ``dtype``
+    (``t``'s where ``None``): a row-parallel product's partial sums, each
+    rounded only where one product over the whole rows rounds."""
+    dtype = dtype or t.dtype
+    if n == 1:
+        return t.to(dtype)
+    return all_reduce(t.float().contiguous(), group).to(dtype)
+
+
+def all_to_all(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """``t`` (n, ...): part j goes to the group's rank j; returns (n, ...)
+    whose part i came from rank i."""
+    flat = t.contiguous().reshape(-1)
+    traffic["all_to_all"] += flat.numel() * flat.element_size()
+    if _staged(flat, group):
+        out = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        dist.all_to_all_single(out, _host(flat), group=group)
+        out = out.to(t.device)
+    else:
+        out = torch.empty_like(flat)
+        dist.all_to_all_single(out, flat, group=group)
+    return out.view(t.shape)
+
+
 def _by_dtype(pairs, tensors) -> list:
     """``pairs`` (leaf index first) split by their leaves' dtypes: one
     collective carries one dtype."""
@@ -227,6 +273,36 @@ class GatherBlocks(torch.autograd.Function):
         return (None, None) + tuple(reduce_to_block(list(grads), ctx.specs, ctx.mesh))
 
 
+def specs_at(specs, path: str) -> list:
+    """The leaves' specs of the sub-nest at the "/"-joined ``path`` of
+    ``specs``.  Under ``layers`` (``layers``, ``enc/layers``,
+    ``layers/l0/attn``) the sub-nest is one group's, so its specs lose their
+    leading, never cut, group entry."""
+    for k in path.split("/"):
+        specs = specs[k]
+    specs = tree_leaves(specs)
+    if "layers" in path.split("/"):
+        if any(spec and spec[0] is not None for spec in specs):
+            raise ValueError(f"{path}: a group axis is cut by {specs}")
+        specs = [P(*tuple(spec)[1:]) for spec in specs]
+    return specs
+
+
+class Cut:
+    """The ``cut(tree, path)`` hook of ``transformer.init_params`` on a
+    mesh: each leaf of ``tree``, the sub-nest at ``path`` of the parameters
+    (one group's under ``layers``), replaced by this rank's block of it
+    under ``specs`` as a tensor of its own, so that the drawn leaf is freed
+    before the next is drawn and no stacked leaf is ever whole."""
+
+    def __init__(self, specs, mesh):
+        self.specs, self.mesh = specs, mesh
+
+    def __call__(self, tree, path: str):
+        it = iter(specs_at(self.specs, path))
+        return tree_map(lambda t: local_block(t, next(it), self.mesh).clone(), tree)
+
+
 class Gather:
     """The ``gather(tree, path)`` hook of ``transformer.forward`` and
     ``loss_fn`` on a mesh: the leaves of ``tree``, the sub-nest at the
@@ -239,14 +315,7 @@ class Gather:
         self.specs, self.mesh = specs, mesh
 
     def __call__(self, tree, path: str):
-        specs = self.specs
-        for k in path.split("/"):
-            specs = specs[k]
-        specs = tree_leaves(specs)
-        if path.split("/")[-1] == "layers":
-            if any(spec and spec[0] is not None for spec in specs):
-                raise ValueError(f"{path}: a group axis is cut by {specs}")
-            specs = [P(*tuple(spec)[1:]) for spec in specs]
+        specs = specs_at(self.specs, path)
         it = iter(GatherBlocks.apply(specs, self.mesh, *tree_leaves(tree)))
         return tree_map(lambda _: next(it), tree)
 

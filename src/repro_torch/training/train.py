@@ -124,11 +124,10 @@ def init_train_state(seed: int, cfg: ModelConfig, opt_cfg: OptConfig, *,
                      device="cuda", mesh=None) -> tuple:
     """``(params, opt_state)``: :func:`transformer.init_params` from ``seed``
     on ``device``, and its :func:`adamw_init` state.  With a ``mesh`` every
-    rank draws the whole tree from the same seed and keeps its blocks, so
-    the sharded state is the unsharded one cut up."""
-    params = T.init_params(seed, cfg, device=device)
-    if mesh is not None:
-        params = blocks.shard_tree(params, R.param_specs(params, mesh, profile="train"), mesh)
+    rank draws the tree from the same seed block by block and keeps its
+    blocks (``init_params(..., mesh=)``), so the sharded state is the
+    unsharded one cut up, and no rank holds the whole tree."""
+    params = T.init_params(seed, cfg, device=device, mesh=mesh, profile="train")
     return params, adamw_init(params, opt_cfg)
 
 

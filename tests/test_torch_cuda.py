@@ -5,6 +5,7 @@ without one; on a machine with a card and no JAX, run
 """
 import dataclasses
 import re
+import time
 from pathlib import Path
 
 import pytest
@@ -1116,3 +1117,274 @@ def test_jamba_trains_whole_over_nccl_on_four_cards(cuda, tmp_path):
             "flash_attention"], 0), "wgmma_bf16": 2 * 4, "bwd_bf16": 4}
         assert r["launches"]["mamba_scan"] == {**dict.fromkeys(r["launches"]["mamba_scan"], 0),
                                               "chain": 56, "bwd": 28}
+
+
+# sharded serving over nccl (ROADMAP A14d): llama3-8b whole in bf16 on two
+# cards at ("data", "model") = (1, 2) and (2, 1), against one card; then
+# internvl2-76b on four cards at (1, 4), first cut to 24 layers (Z20a's
+# size) against one card, then whole.  Each rank serves on its own card
+# (nccl, one rank a card), its weights drawn block by block
+# (init_params(..., mesh=, profile="inference")).  Bars: each teacher-forced
+# step's logits within SERVE_RTOL of its max |logit|, or within twice the
+# one-card steps' response to every embedding entry moved by one rounding
+# where that is larger (PERF.md's rule for bf16 served logits): bf16
+# products over a rank's heads and hidden units, the row-parallel sums
+# added in f32 and rounded once where one card's product rounds once in
+# another order, so some bf16 roundings differ and the random-weight model
+# carries each through its layers (internvl2-76b at 24 layers on four H100s
+# parted by 2.29e-2 against a one-ulp response of 3.77e-2; llama3-8b at (2,
+# 1), which sums nothing, by 0); and the greedy tokens equal where the
+# one-card run's top two stand more than twice the step's logit error apart
+SERVE_RTOL = 2e-2
+SERVE_PROMPT, SERVE_NEW = 512, 8
+INTERNVL_PROMPT, INTERNVL_NEW, INTERNVL_SLOTS = 1024, 16, 4096
+
+
+def _serve_batch(cfg, b, s, dev, seed=4):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))
+             .to(dev)}
+    if cfg.family == "vlm":
+        pe = rng.standard_normal((b, cfg.n_patches, cfg.d_frontend)).astype(np.float32)
+        batch["patch_embeds"] = torch.from_numpy(pe).to(dev, cfg.tdtype)
+    return batch
+
+
+def _serve_steps(params, cfg, batch, slots, n_new, tokens=None, mesh=None):
+    """Prefill and ``n_new`` decode steps, greedy or fed ``tokens`` (B,
+    n_new): each step's logits (n_new + 1, B, V) f32, the tokens fed, and
+    the prefill's and the decode steps' launches."""
+    with torch.inference_mode():
+        reset_launches()
+        logits, cache, pos = T.prefill(params, cfg, batch, slots, mesh=mesh)
+        counts = {"prefill": launch_counts()}
+        reset_launches()
+        steps, fed = [logits.float()], []
+        for i in range(n_new):
+            tok = (torch.argmax(steps[-1], -1).to(torch.int32)[:, None] if tokens is None
+                   else tokens[:, i:i + 1])
+            fed.append(tok)
+            logits, cache = T.serve_step(params, cfg, cache, tok, pos + i, mesh=mesh)
+            steps.append(logits)
+        counts["decode"] = launch_counts()
+    return torch.stack(steps), torch.cat(fed, 1), counts
+
+
+def _ulp_response(params, cfg, batch, slots, tokens, want) -> float:
+    """How far the one-card steps ``want`` move with every embedding entry
+    moved by one rounding (printed beside the bar, not a bar)."""
+    embed = params["embed"].clone()
+    embed.view(torch.int16).bitwise_xor_(1)
+    moved, _, _ = _serve_steps({**params, "embed": embed}, cfg, batch, slots,
+                               tokens.shape[1], tokens)
+    return float(((moved - want).abs().amax(-1).amax(-1) / want.abs().amax(-1).amax(-1)).max())
+
+
+def _hold_steps(got, want, want_tokens) -> dict:
+    """The teacher-forced steps ``got`` against the one-card ``want``: the
+    worst gap relative to each step's max, and the greedy picks that differ
+    where the one-card margin exceeds twice the step's error."""
+    err = (got - want).abs().amax(-1)                          # (steps, B)
+    top = want.abs().amax(-1).amax(-1)                         # (steps,)
+    vals = want.topk(2, dim=-1).values
+    margin = vals[..., 0] - vals[..., 1]
+    differ = got.argmax(-1) != want.argmax(-1)
+    return {"rel_err": float((err.amax(-1) / top).max()),
+            "clear_flips": int((differ & (margin > 2 * err)).sum()),
+            "flips": int(differ.sum()), "picks": int(differ.numel()),
+            "fed_greedy": bool(torch.equal(want.argmax(-1)[:-1].T.int(), want_tokens))}
+
+
+def _serve_rank(rank, world, tmp, arch, changes, shape, b, prompt, n_new):
+    """A rank on card ``rank``: the one-card run on its own card (the same
+    seeded weights and batch on every card, greedy), then its blocks on a
+    ``shape`` ("data", "model") mesh and the same steps fed the one-card
+    tokens, held to the one-card logits."""
+    from repro_torch.tree import tree_leaves
+    dev = LM.start_process_group("nccl", rank, world, f"file://{tmp}/rdv", device=f"cuda:{rank}",
+                                 timeout_s=600)
+    try:
+        mesh = LM.make_mesh_compat(shape, ("data", "model"))
+        cfg = dataclasses.replace(get_config(arch), **changes)
+        batch = _serve_batch(cfg, b, prompt, dev)
+        slots = prompt + (cfg.n_patches if cfg.family == "vlm" else 0) + n_new
+        params = T.init_params(0, cfg, device=dev)
+        want, tokens, _ = _serve_steps(params, cfg, batch, slots, n_new)
+        ulp = _ulp_response(params, cfg, batch, slots, tokens, want)
+        del params
+        torch.cuda.empty_cache()
+        params = T.init_params(0, cfg, device=dev, mesh=mesh, profile="inference")
+        got, _, counts = _serve_steps(params, cfg, batch, slots, n_new, tokens, mesh)
+        out = dict(_hold_steps(got, want, tokens), launches=counts, one_ulp_response=ulp,
+                   block_gb=sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9)
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def _check_serve_rank(r, n_layers):
+    assert r["fed_greedy"]
+    assert r["rel_err"] <= max(SERVE_RTOL, 2 * r["one_ulp_response"]), r
+    assert r["clear_flips"] == 0, r
+    assert r["launches"]["prefill"]["flash_attention"] == {
+        **dict.fromkeys(r["launches"]["prefill"]["flash_attention"], 0), "wgmma_bf16": n_layers}
+    assert not any(sum(c.values()) for c in r["launches"]["decode"].values())
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
+def test_sharded_serving_over_nccl_on_two_cards(cuda, tmp_path, shape):
+    """llama3-8b whole in bf16, B 4 x 512 tokens, 8 steps: each card's
+    teacher-forced logits within SERVE_RTOL of one card's, the greedy picks
+    equal where the margin allows, 32 flash forwards on ``wgmma_bf16`` at
+    the prefill (a rank's heads at (1, 2), its two rows at (2, 1)), none
+    at decode."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: nccl puts each rank on a card of its own")
+    ranks = LM.spawn_ranks(_serve_rank, 2, (str(tmp_path), "llama3-8b", {}, shape, 4,
+                                            SERVE_PROMPT, SERVE_NEW), timeout_s=900)
+    print(f"sharded serving on two cards at {shape}:", ranks)
+    for r in ranks:
+        _check_serve_rank(r, 32)
+
+
+def _profiled(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the
+    device's busy time (the union of its kernel and copy intervals), the
+    time in NCCL kernels (which include waiting for the other ranks), and
+    the host operators and device kernels with the most self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(a):
+        return getattr(a, "self_device_time_total", None) or getattr(a, "self_cuda_time_total", 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full")
+    busy, end = 0.0, float("-inf")
+    for lo, hi, _ in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    avg = prof.key_averages()
+    return {"wall_ms": 1e3 * wall, "busy_ms": busy / 1e3,
+            "nccl_ms": sum(hi - lo for lo, hi, name in spans if "nccl" in name.lower()) / 1e3,
+            "host_top": [(a.key[:60], a.count, a.self_cpu_time_total / 1e3)
+                         for a in sorted(avg, key=lambda a: -a.self_cpu_time_total)[:10]],
+            "device_top": [(a.key[:60], a.count, dev_us(a) / 1e3)
+                           for a in sorted(avg, key=lambda a: -dev_us(a))[:10]]}
+
+
+def _internvl_rank(rank, world, tmp):
+    """A rank of internvl2-76b on card ``rank`` of a (1, 4) mesh: first at
+    24 layers against the one-card run on its own card; then whole, its
+    blocks' bytes, a ServingEngine run (B 4 x 1024 tokens after 256 zero
+    patches, 16 new tokens, a 4096-slot cache) counted, and a replay,
+    prefill and decode timed apart between barriers, fed the served tokens,
+    and one more decode step under the profiler; its peak."""
+    from repro_torch.tree import tree_leaves
+    dev = LM.start_process_group("nccl", rank, world, f"file://{tmp}/rdv", device=f"cuda:{rank}",
+                                 timeout_s=900)
+    out = {}
+    try:
+        mesh = LM.make_mesh_compat((1, 4), ("data", "model"))
+        cfg = dataclasses.replace(get_config("internvl2-76b"), n_layers=24)
+        batch = _serve_batch(cfg, 4, SERVE_PROMPT, dev)
+        slots = cfg.n_patches + SERVE_PROMPT + SERVE_NEW
+        params = T.init_params(0, cfg, device=dev)
+        want, tokens, _ = _serve_steps(params, cfg, batch, slots, SERVE_NEW)
+        ulp = _ulp_response(params, cfg, batch, slots, tokens, want)
+        del params
+        torch.cuda.empty_cache()
+        params = T.init_params(0, cfg, device=dev, mesh=mesh, profile="inference")
+        got, _, counts = _serve_steps(params, cfg, batch, slots, SERVE_NEW, tokens, mesh)
+        out["layers24"] = dict(_hold_steps(got, want, tokens), launches=counts,
+                               one_ulp_response=ulp)
+        del params, got, want
+        torch.cuda.empty_cache()
+
+        cfg = get_config("internvl2-76b")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_params(0, cfg, device=dev, mesh=mesh, profile="inference")
+        torch.cuda.synchronize()
+        whole = {"init_s": time.perf_counter() - t0,
+                 "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "block_gb": sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(params)) / 1e9}
+        torch.cuda.reset_peak_memory_stats()
+        rng = np.random.default_rng(5)
+        reqs = [Request(i, rng.integers(0, cfg.vocab, INTERNVL_PROMPT).astype(np.int32),
+                        max_new=INTERNVL_NEW) for i in range(4)]
+        reset_launches()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        ServingEngine(cfg, params, cache_slots=INTERNVL_SLOTS, device=dev, mesh=mesh).run(reqs)
+        torch.cuda.synchronize()
+        whole["run_ms"] = 1e3 * (time.perf_counter() - t0)
+        whole["launches"] = launch_counts()
+        whole["tokens"] = [r.out for r in reqs]
+        served = torch.tensor(whole["tokens"], dtype=torch.int32, device=dev)
+        batch = {"tokens": torch.from_numpy(np.stack([r.prompt for r in reqs])).to(dev),
+                 "patch_embeds": torch.zeros((4, cfg.n_patches, cfg.d_frontend),
+                                             dtype=cfg.tdtype, device=dev)}
+        with torch.inference_mode():
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            logits, cache, pos = T.prefill(params, cfg, batch, INTERNVL_SLOTS, mesh=mesh)
+            torch.cuda.synchronize()
+            whole["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            whole["prefill_launches"] = launch_counts()
+            whole["cache_gb"] = sum(t.numel() * t.element_size() for t in tree_leaves(cache)) / 1e9
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            picks = [torch.argmax(logits.float(), -1)]
+            for i in range(INTERNVL_NEW - 1):
+                logits, cache = T.serve_step(params, cfg, cache, served[:, i:i + 1], pos + i,
+                                             mesh=mesh)
+                picks.append(torch.argmax(logits, -1))
+            torch.cuda.synchronize()
+            whole["decode_ms_per_token"] = 1e3 * (time.perf_counter() - t0) / (INTERNVL_NEW - 1)
+            whole["decode_launches"] = launch_counts()
+            whole["replay_greedy"] = torch.stack(picks, 1).int().tolist() == whole["tokens"]
+            whole["finite"] = bool(torch.isfinite(logits).all())
+            # one more step under the profiler: where a token's time goes
+            last = INTERNVL_NEW - 1
+            torch.distributed.barrier()
+            whole["decode_step_profile"] = _profiled(lambda: T.serve_step(
+                params, cfg, cache, served[:, last:last + 1], pos + last, mesh=mesh))
+        whole["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["whole"] = whole
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def test_internvl_serves_whole_over_nccl_on_four_cards(cuda, tmp_path):
+    """internvl2-76b: at 24 layers (Z20a's size) each card's teacher-forced
+    logits within SERVE_RTOL of one card's; whole (80 layers, 70.6 B
+    parameters, 141 GB in bf16: a quarter a card), the four ranks' tokens
+    identical, 80 ``wgmma_bf16`` flash forwards a rank at the prefill (its
+    16 query heads over 2 kv heads) and none at decode."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: internvl2-76b whole does not fit fewer")
+    ranks = LM.spawn_ranks(_internvl_rank, 4, (str(tmp_path),), timeout_s=1500)
+    print("internvl2-76b on four cards:", ranks)
+    for r in ranks:
+        _check_serve_rank(r["layers24"], 24)
+        whole = r["whole"]
+        assert whole["tokens"] == ranks[0]["whole"]["tokens"]
+        assert all(len(t) == INTERNVL_NEW for t in whole["tokens"])
+        assert whole["finite"]
+        for key in ("launches", "prefill_launches"):
+            assert whole[key]["flash_attention"] == {
+                **dict.fromkeys(whole[key]["flash_attention"], 0), "wgmma_bf16": 80}, key
+        assert not any(sum(c.values()) for c in whole["decode_launches"].values())
+        assert 33 <= whole["block_gb"] <= 38, whole["block_gb"]
