@@ -15,6 +15,14 @@ reference does: the conv, its bias and ``silu`` in the model dtype, the
 scan in f32, ``y`` back in the model dtype before the gate, the conv state
 kept in f32.  The reference splits S into chunks; that changes no
 arithmetic, so the port scans all of S in one launch.
+
+Under a sharded-serving plan (``par``, ``sharding.parallel.Plan``; ``path``
+the mixer's ``layers/l{j}/mamba``) both modes run on this rank's channels
+(``Plan.mamba_split``): ``in_proj``'s column block exchanged into the x and
+z of those channels (``Plan.mamba_xz``), the conv, dt and the scan on them
+from the rank's blocks of the state, ``x_proj``'s and ``out_proj``'s rows
+summed over "model"; or on the leaves all-gathered where "model" does not
+split the channels.
 """
 from __future__ import annotations
 
@@ -51,23 +59,51 @@ def init_mamba(gen, cfg, device) -> dict:
     }
 
 
-def _ssm_params(p, xc, ds):
+def _ssm_params(p, xc, ds, par=None):
     """xc: (..., di) conv output -> dt (..., di), B (..., ds), C (..., ds), f32.
+    Under a split plan ``par``, ``x_proj``'s product over this rank's
+    channels is summed over "model" (in f32, rounded once to the model
+    dtype as one product is) before the split.
 
     ``F.softplus`` returns x itself above 20, where ``jax.nn.softplus`` adds
     log1p(exp(-x)); the two differ there by less than 2.1e-9."""
-    proj = (xc @ p["x_proj"]).float()
+    if par is None:
+        proj = (xc @ p["x_proj"]).float()
+    else:
+        proj = par.row_sum(xc, p["x_proj"], xc.dtype).float()
     dt_r, b, c = torch.split(proj, [DT_RANK, ds, ds], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"])
     return dt, b.contiguous(), c.contiguous()
 
 
-def mamba_seq(p, x, cfg, init_state=None):
+def _split_plan(p, par, path) -> tuple:
+    """``(p, par)``: under a plan that splits the channels, as given; under
+    one that does not, the leaves all-gathered and no plan; else as given."""
+    if par is not None and not par.mamba_split(path):
+        return par.whole_leaves(p, path), None
+    return p, par
+
+
+def _in_proj(p, x, par):
+    """(x, z) of the channels computed: all, or this rank's."""
+    xz = x @ p["in_proj"]
+    return torch.chunk(xz, 2, dim=-1) if par is None else par.mamba_xz(xz)
+
+
+def _out_proj(p, y, z, dtype, par):
+    y = y.to(dtype) * F.silu(z)
+    return y @ p["out_proj"] if par is None else par.row_sum(y, p["out_proj"], dtype)
+
+
+def mamba_seq(p, x, cfg, init_state=None, par=None, path=""):
     """Full-sequence mamba. x: (B,S,D) -> (y (B,S,D), (conv_state, ssm_state)),
-    from ``init_state`` = (conv (B,dc-1,di) f32, ssm (B,di,ds) f32), or zeros."""
+    from ``init_state`` = (conv (B,dc-1,di) f32, ssm (B,di,ds) f32), or zeros;
+    under a split plan ``par`` every di is this rank's channels'."""
     b, s, _ = x.shape
-    di, ds, dc = d_inner(cfg), cfg.mamba_d_state, cfg.mamba_d_conv
-    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)        # (B,S,di)
+    ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
+    p, par = _split_plan(p, par, path)
+    xi, z = _in_proj(p, x, par)                             # (B,S,di)
+    di = xi.shape[-1]
     if init_state is not None:
         pad = init_state[0].to(xi.dtype)                    # (B,dc-1,di)
     else:
@@ -78,35 +114,34 @@ def mamba_seq(p, x, cfg, init_state=None):
     for i in range(1, dc):
         xc = xc + xp[:, i:i + s] * p["conv"][i]
     xc = F.silu(xc + p["conv_b"])
-    dt, bm, cm = _ssm_params(p, xc, ds)                     # (B,S,di), (B,S,ds) x2
+    dt, bm, cm = _ssm_params(p, xc, ds, par)                # (B,S,di), (B,S,ds) x2
     a = -torch.exp(p["A_log"])                              # (di,ds)
     h0 = init_state[1] if init_state is not None else None
     xf = xc.float().contiguous()
     y, h = ops.mamba_scan_op(dt, bm, cm, xf, a, h0)
-    y = y + p["D"] * xf
-    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    y = _out_proj(p, y + p["D"] * xf, z, x.dtype, par)
     # a copy: in f32 a view of xp would keep the layer's whole (B, S, di)
     # input alive in the prefill's cache entry
     return y, (xp[:, s:].to(torch.float32, copy=True), h)
 
 
-def mamba_step(p, x, state, cfg):
+def mamba_step(p, x, state, cfg, par=None, path=""):
     """One-token decode. x: (B,1,D); state = (conv (B,dc-1,di) f32,
-    ssm (B,di,ds) f32).  Returns (y (B,1,D), new state); ``state`` is not
-    written."""
+    ssm (B,di,ds) f32), this rank's channels' under a split plan ``par``.
+    Returns (y (B,1,D), new state); ``state`` is not written."""
     ds = cfg.mamba_d_state
     conv_state, h = state
-    xi, z = torch.chunk(x[:, 0, :] @ p["in_proj"], 2, dim=-1)   # (B,di)
+    p, par = _split_plan(p, par, path)
+    xi, z = _in_proj(p, x[:, 0, :], par)                    # (B,di)
     win = torch.cat([conv_state.to(xi.dtype), xi[:, None, :]], dim=1)   # (B,dc,di)
     # one product over the window, as the reference: in bf16 it rounds
     # otherwise than mamba_seq's tap-by-tap sum
     xc = F.silu(torch.einsum("bcd,cd->bd", win, p["conv"]) + p["conv_b"])
-    dt, bm, cm = _ssm_params(p, xc, ds)
+    dt, bm, cm = _ssm_params(p, xc, ds, par)
     a = -torch.exp(p["A_log"])
     xf = xc.float().contiguous()
     y, h = ops.mamba_scan_op(dt[:, None], bm[:, None], cm[:, None], xf[:, None], a, h)
-    y = y[:, 0] + p["D"] * xf
-    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    y = _out_proj(p, y[:, 0] + p["D"] * xf, z, x.dtype, par)
     return y[:, None, :], (win[:, 1:, :].float(), h)
 
 

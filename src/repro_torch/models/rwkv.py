@@ -9,6 +9,12 @@ The WKV recurrence per head (k-dim x v-dim state):
 ``wkv_scan`` runs it through ``ops.wkv_op`` from the state it is given:
 the ``rwkv6_scan`` kernel on the card, over a whole prompt in prefill and
 over one token in each decode step.
+
+Under a sharded-serving plan (``par``, ``sharding.parallel.Plan``; ``path``
+the sub-nest's, ``layers/l{j}/tm`` or ``/cm``) :func:`time_mix` runs on this
+rank's heads (``Plan.tm_heads``), or on its leaves all-gathered where its
+columns are not whole heads, and :func:`channel_mix` sums its hidden
+product over "model".
 """
 from __future__ import annotations
 
@@ -74,14 +80,19 @@ def _ddlerp(p, x, x_prev):
     return tuple(out[..., i, :].to(x.dtype) for i in range(5))
 
 
-def _wkv_inputs(p, x, x_prev, cfg):
+def _wkv_inputs(p, x, x_prev, cfg, lo: int = 0):
+    """r, k, v, g, w on the columns ``p``'s ``w[rkvg]`` hold: all of them,
+    or a rank's block from column ``lo``, where the replicated decay leaves
+    are narrowed to it (``dec_w2``'s columns before the product)."""
     xw, xk, xv, xr, xg = _ddlerp(p, x, x_prev)
     r = xr @ p["wr"]
     k = xk @ p["wk"]
     v = xv @ p["wv"]
     g = F.silu(xg @ p["wg"])
-    w = torch.exp(-torch.exp(p["decay_base"]
-                             + torch.tanh(xw.float() @ p["dec_w1"]) @ p["dec_w2"]))
+    n = r.shape[-1]
+    w = torch.exp(-torch.exp(p["decay_base"].narrow(-1, lo, n)
+                             + torch.tanh(xw.float() @ p["dec_w1"])
+                             @ p["dec_w2"].narrow(-1, lo, n)))
     return r, k, v, g, w
 
 
@@ -95,35 +106,54 @@ def wkv_scan(r, k, v, w, u, state):
     return ops.wkv_op(*(a.contiguous() for a in (r, k, v, w, u, state)))
 
 
-def time_mix(p, x, x_prev, state, cfg):
-    """x: (B,S,D); x_prev: (B,D) last token of previous chunk.
+def time_mix(p, x, x_prev, state, cfg, par=None, path=""):
+    """x: (B,S,D); x_prev: (B,D) last token of previous chunk; state: the
+    (B,H,hd,hd) WKV state, or under a plan whose heads split
+    (``par.tm_heads(path)``) the whole state or this rank's heads'.
 
-    Returns (out (B,S,D), new_x_prev (B,D), new_state).
+    Returns (out (B,S,D), new_x_prev (B,D), new_state), the state of the
+    heads computed (a rank's under a split plan).
     """
-    b, s, d = x.shape
+    b, s, _ = x.shape
     hd = cfg.rwkv_head_dim
+    heads = par is not None and par.tm_heads(path)
+    if par is not None and not heads:
+        p = par.whole_leaves(p, path)
+    n = p["wr"].shape[-1]                      # the columns computed: d, or a rank's
+    lo = par.r * n if heads else 0
     shifted = torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
-    r, k, v, g, w = _wkv_inputs(p, x, shifted, cfg)
+    r, k, v, g, w = _wkv_inputs(p, x, shifted, cfg, lo)
     rh, kh, vh = (_heads(a.float(), hd) for a in (r, k, v))
     wh = _heads(w, hd)
-    u = p["bonus"].reshape(d // hd, hd)
+    u = p["bonus"].narrow(-1, lo, n).reshape(n // hd, hd)
+    if state.shape[1] != n // hd:              # the whole zero state of a prefill
+        state = state.narrow(1, lo // hd, n // hd)
     out, state = wkv_scan(rh, kh, vh, wh, u, state)
     # per-head groupnorm (ln_x): normalise within each head
-    oh = out.reshape(b, s, d // hd, hd)
+    oh = out.reshape(b, s, n // hd, hd)
     oh = ((oh - oh.mean(dim=-1, keepdim=True))
           * torch.rsqrt(oh.var(dim=-1, keepdim=True, unbiased=False) + 1e-5))
-    out = oh.reshape(b, s, d) * p["ln_x"]
-    out = (out.to(x.dtype) * g) @ p["wo"]
+    out = (oh.reshape(b, s, n) * p["ln_x"].narrow(-1, lo, n)).to(x.dtype) * g
+    out = par.row_sum(out, p["wo"], x.dtype) if heads else out @ p["wo"]
     return out, x[:, -1, :], state
 
 
-def channel_mix(p, x, x_prev):
+def channel_mix(p, x, x_prev, par=None, path=""):
+    """Under a plan ``par``, ``relu(xk @ w_k)² @ w_v`` on this rank's hidden
+    units summed over "model", and ``sigmoid(xr @ w_r)`` from ``w_r``'s
+    columns all-gathered (or the leaves gathered whole where "model" does
+    not split the hidden units)."""
     shifted = torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
     dx = shifted - x
     xk = x + dx * p["maa_k"].to(x.dtype)
     xr = x + dx * p["maa_r"].to(x.dtype)
+    if par is not None and not par.ffn_split(path):
+        p, par = par.whole_leaves(p, path), None
     k = torch.square(torch.relu(xk @ p["w_k"]))
-    return torch.sigmoid(xr @ p["w_r"]) * (k @ p["w_v"]), x[:, -1, :]
+    if par is None:
+        return torch.sigmoid(xr @ p["w_r"]) * (k @ p["w_v"]), x[:, -1, :]
+    gate = torch.sigmoid(par.whole(xr, p["w_r"], None, f"{path}/w_r", ""))
+    return gate * par.row_sum(k, p["w_v"], x.dtype), x[:, -1, :]
 
 
 def init_state(cfg, batch, dtype, device):

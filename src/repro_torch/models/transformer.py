@@ -18,7 +18,7 @@ at prefill (``ck``, ``cv``).  The VLM family puts its projected patch
 embeddings before the tokens.
 
 Under a mesh (``mesh=``, a ("data", "model") ``DeviceMesh``), ``prefill``
-and ``serve_step`` serve the dense and VLM families on each rank's blocks:
+and ``serve_step`` serve every family but MoE on each rank's blocks:
 the weights by ``rules.param_specs(..., profile="inference")``
 (:func:`init_params` draws them block by block), the decode cache by
 ``rules.cache_specs`` (:func:`init_cache`), the batch's rows by
@@ -250,17 +250,21 @@ def _attn_seq(p, x, cfg, positions, *, causal, window, cross_src=None, par=None,
 
 
 def _ffn(p, h, cfg, par=None, path=""):
-    """The dense FFN.  Under a plan ``par`` the SwiGLU on this rank's hidden
-    units, ``w_down``'s rows summed over "model" (or on the leaves
-    all-gathered where they are not cut so)."""
-    if cfg.family == "encdec":
-        return gelu_mlp(h, p)
+    """The dense FFN (the GELU MLP for the encoder-decoder, else SwiGLU).
+    Under a plan ``par`` on this rank's hidden units, the down projection's
+    rows summed over "model" (the GELU MLP's replicated ``b_out`` added once,
+    after the sum), or on the leaves all-gathered where they are not cut
+    so."""
+    mlp = gelu_mlp if cfg.family == "encdec" else swiglu
     if par is None:
-        return swiglu(h, p)
-    if par.ffn_split(path):
-        return par.row_sum(F.silu(dense(h, p["w_gate"])) * dense(h, p["w_up"]), p["w_down"],
-                           h.dtype)
-    return swiglu(h, par.whole_leaves(p, path))
+        return mlp(h, p)
+    if not par.ffn_split(path):
+        return mlp(h, par.whole_leaves(p, path))
+    if cfg.family == "encdec":
+        hid = F.gelu(dense(h, p["w_in"], p["b_in"]), approximate="tanh")
+        return par.row_sum(hid, p["w_out"], h.dtype) + p["b_out"]
+    return par.row_sum(F.silu(dense(h, p["w_gate"])) * dense(h, p["w_up"]), p["w_down"],
+                       h.dtype)
 
 
 def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
@@ -268,8 +272,10 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
     """One sublayer over a full sequence.  Returns (x, aux, cache_entry).
     A cross layer attends to ``enc_out`` where it is given, and skips its
     cross-attention where it is not, as the reference does.  ``par``,
-    ``path`` (``layers/l{j}``): a rank's plan under a mesh (dense and VLM
-    layers only)."""
+    ``path`` (``layers/l{j}``, ``enc/layers``): a rank's plan under a mesh;
+    its cache entries are then the rank's heads and channels (``k``, ``v``,
+    ``wkv``, ``conv``, ``ssm``, ``ck``, ``cv``) and the whole last row
+    (``tm_prev``, ``cm_prev``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = {}
     h = _apply_norm(p["norm1"], x, cfg)
@@ -279,19 +285,20 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
         if collect_cache:
             cache["k"], cache["v"] = k, v
     elif desc.mixer == "mamba":
-        att, state = mamba_mod.mamba_seq(p["mamba"], h, cfg)
+        att, state = mamba_mod.mamba_seq(p["mamba"], h, cfg, par=par, path=f"{path}/mamba")
         if collect_cache:
             cache["conv"], cache["ssm"] = state
     else:  # rwkv: norm1 -> time-mix
         st = rwkv_mod.init_state(cfg, x.shape[0], x.dtype, x.device)
-        att, tm_prev, wkv = rwkv_mod.time_mix(p["tm"], h, st["tm_prev"], st["wkv"], cfg)
+        att, tm_prev, wkv = rwkv_mod.time_mix(p["tm"], h, st["tm_prev"], st["wkv"], cfg, par,
+                                              f"{path}/tm")
         if collect_cache:
             cache["tm_prev"], cache["wkv"] = tm_prev, wkv
     x = x + att
     if desc.cross and enc_out is not None:
         h = _apply_norm(p["norm_cross"], x, cfg)
         catt, (ck, cv) = _attn_seq(p["cross"], h, cfg, positions, causal=False, window=None,
-                                   cross_src=enc_out)
+                                   cross_src=enc_out, par=par, path=f"{path}/cross")
         if collect_cache:
             cache["ck"], cache["cv"] = ck, cv
         x = x + catt
@@ -301,7 +308,8 @@ def apply_layer_seq(p, desc: LayerDesc, x, cfg, positions, *, causal=True,
     elif desc.ffn == "moe":
         f, aux = moe_mod.moe_ffn(h, p["ffn"], cfg.moe)
     else:  # rwkv channel mix
-        f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, torch.zeros_like(h[:, 0]))
+        f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, torch.zeros_like(h[:, 0]), par,
+                                          f"{path}/cm")
         if collect_cache:
             cache["cm_prev"] = cm_prev
     return x + f, aux, cache
@@ -330,19 +338,25 @@ def _gather_top(params, gather):
     return out
 
 
-def _encoder(params, cfg, frames, gather=_no_gather):
+def _encoder(params, cfg, frames, gather=_no_gather, par=None):
     """Whisper-style encoder on stub frame embeddings (B, F, d_frontend):
     rope at positions 0..F-1 and no mask in its self-attention; each layer
     recomputed in the backward, as the reference checkpoints it, its
-    parameters gathered inside the recompute."""
+    parameters gathered inside the recompute.  Under a plan ``par`` (the
+    sharded prefill's), ``enc/proj`` and ``enc/pos``'s column blocks are
+    all-gathered over "model" and each layer splits as the decoder's."""
     enc = params["enc"]
-    x = dense(frames, enc["proj"]) + enc["pos"][None]
+    if par is None:
+        x = dense(frames, enc["proj"]) + enc["pos"][None]
+    else:
+        x = par.whole(frames, enc["proj"], enc["pos"][None], "enc/proj", "enc/pos")
     desc = LayerDesc("attn", "dense")
     positions = torch.arange(frames.shape[1], device=x.device)
 
     def layer(p, x):
         p = gather(p, "enc/layers")
-        return apply_layer_seq(p, desc, x, cfg, positions, causal=False)[0]
+        return apply_layer_seq(p, desc, x, cfg, positions, causal=False, par=par,
+                               path="enc/layers")[0]
     for p in _groups(enc["layers"], cfg.n_enc_layers):
         x = _remat(layer, p, x)
     return _apply_norm(enc["final_norm"], x, cfg)
@@ -485,7 +499,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
                device="cuda", mesh=None) -> dict:
     """Empty decode cache (group-stacked leading dim) for ``batch`` rows.
     Under a ``mesh``, this rank's blocks of it by ``rules.cache_specs``
-    (its rows over "data", its slots over "model", every kv head), as a
+    (its rows over "data"; over "model" its slots for every kv head, its
+    heads of ``wkv``, ``ck`` and ``cv``, its channels of ``conv`` and
+    ``ssm``, its d_model block of ``tm_prev`` and ``cm_prev``), as a
     ``parallel.ShardedCache`` that knows the whole cache's slot count."""
     dev = resolve_device(device)
     if mesh is None:
@@ -590,40 +606,58 @@ def apply_layer_decode(p, desc: LayerDesc, x, cfg, cache_l, pos, window, par=Non
     """One sublayer over one token; ``cache_l`` (this group's views) is
     updated in place.  ``pos``: an int, or a (B,) tensor (``_attn_decode``).
     ``par``, ``path`` (``layers/l{j}``), ``sc``: a rank's plan under a mesh
-    and its cache's slot count (dense and VLM layers only)."""
+    and its cache's slot count; ``cache_l`` then holds the rank's blocks,
+    and an RWKV layer all-gathers its ``tm_prev`` and ``cm_prev`` blocks
+    into the whole previous rows first."""
     h = _apply_norm(p["norm1"], x, cfg)
     if desc.mixer == "attn":
         att = _attn_decode(p["attn"], h, cfg, cache_l, pos, window, par, f"{path}/attn", sc)
     elif desc.mixer == "mamba":
         att, (conv, ssm) = mamba_mod.mamba_step(
-            p["mamba"], h, (cache_l["conv"], cache_l["ssm"]), cfg)
+            p["mamba"], h, (cache_l["conv"], cache_l["ssm"]), cfg, par, f"{path}/mamba")
         cache_l["conv"].copy_(conv)
         cache_l["ssm"].copy_(ssm)
     else:
-        att, tm_prev, wkv = rwkv_mod.time_mix(
-            p["tm"], h, cache_l["tm_prev"].to(h.dtype), cache_l["wkv"], cfg)
-        cache_l["tm_prev"].copy_(tm_prev)
+        prev = [cache_l["tm_prev"], cache_l["cm_prev"]]
+        n = prev[0].shape[-1]
+        if par is not None and n != cfg.d_model:
+            prev = par.gather_last_many(prev)
+        att, tm_prev, wkv = rwkv_mod.time_mix(p["tm"], h, prev[0].to(h.dtype), cache_l["wkv"],
+                                              cfg, par, f"{path}/tm")
+        cache_l["tm_prev"].copy_(tm_prev if par is None else par.last_block(tm_prev, n))
         cache_l["wkv"].copy_(wkv)
     x = x + att
     if desc.cross:
-        # one query against every frame, plain ops as in the reference
-        h = _apply_norm(p["norm_cross"], x, cfg)
-        b = h.shape[0]
-        q = dense(h, p["cross"]["wq"], p["cross"].get("bq")).reshape(b, 1, cfg.n_heads, cfg.hd)
-        f = cache_l["ck"].shape[1]
-        kv_pos = torch.arange(f, dtype=torch.int32, device=h.device).expand(b, f)
-        q_pos = torch.full((b,), f, dtype=torch.int32, device=h.device)
-        catt = decode_attention(q, cache_l["ck"], cache_l["cv"], kv_pos, q_pos, None)
-        x = x + dense(catt.reshape(b, 1, cfg.n_heads * cfg.hd), p["cross"]["wo"])
+        x = x + _cross_decode(p["cross"], _apply_norm(p["norm_cross"], x, cfg), cfg, cache_l,
+                              par, f"{path}/cross")
     h = _apply_norm(p["norm2"], x, cfg)
     if desc.ffn == "dense":
         f = _ffn(p["ffn"], h, cfg, par, f"{path}/ffn")
     elif desc.ffn == "moe":
         f, _ = moe_mod.moe_ffn(h, p["ffn"], cfg.moe)
     else:
-        f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, cache_l["cm_prev"].to(h.dtype))
-        cache_l["cm_prev"].copy_(cm_prev)
+        f, cm_prev = rwkv_mod.channel_mix(p["cm"], h, prev[1].to(h.dtype), par, f"{path}/cm")
+        cache_l["cm_prev"].copy_(cm_prev if par is None else par.last_block(cm_prev, n))
     return x + f
+
+
+def _cross_decode(p, h, cfg, cache_l, par=None, path=""):
+    """One query against every frame of ``cache_l``'s ``ck`` and ``cv``,
+    plain ops as in the reference.  Under a plan ``par``, on this rank's
+    heads (its ``ck``, ``cv`` blocks) with ``wo``'s rows summed over
+    "model", or on the leaves all-gathered where the heads are not whole
+    blocks (the cross cache is then replicated)."""
+    b, hd = h.shape[0], cfg.hd
+    heads = par is not None and par.heads(path)
+    if par is not None and not heads:
+        p = par.whole_leaves(p, path)
+    q = dense(h, p["wq"], p.get("bq")).reshape(b, 1, -1, hd)
+    f = cache_l["ck"].shape[1]
+    kv_pos = torch.arange(f, dtype=torch.int32, device=h.device).expand(b, f)
+    q_pos = torch.full((b,), f, dtype=torch.int32, device=h.device)
+    catt = decode_attention(q, cache_l["ck"], cache_l["cv"], kv_pos, q_pos, None)
+    catt = catt.reshape(b, 1, -1)
+    return par.row_sum(catt, p["wo"], h.dtype) if heads else dense(catt, p["wo"])
 
 
 def serve_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor, pos, *,
@@ -719,31 +753,50 @@ def _prefill_slots(sc: int, s_in: int, device) -> tuple:
 
 
 def _prefill_sharded(params, cfg, batch, cache_seq_len, par):
-    """:func:`prefill` under ``par``: a group at a time, each attention
-    layer's k and v sent to the ranks whose cache slots they fill
-    (:meth:`parallel.Plan.prefill_kv`) as soon as they are made."""
+    """:func:`prefill` under ``par``: the encoder first where there is one,
+    then a group at a time, each attention layer's k and v sent to the
+    ranks whose cache slots they fill (:meth:`parallel.Plan.prefill_kv`) as
+    soon as they are made; a recurrent layer's states and a cross layer's
+    k and v are the rank's blocks as computed (``tm_prev`` and ``cm_prev``
+    narrowed to its d_model block)."""
     b = batch["tokens"].shape[0]
     par.check(batch["tokens"].device)
     lo, hi = par.rows(b)
-    x, positions, _ = embed_inputs(params, cfg, {k: v[lo:hi] for k, v in batch.items()},
-                                   par=par)
+    mine = {k: v[lo:hi] for k, v in batch.items()}
+    x, positions, _ = embed_inputs(params, cfg, mine, par=par)
+    enc_out = (_encoder(params, cfg, mine["frames"], par=par) if cfg.family == "encdec"
+               else None)
     s_in = x.shape[1]
     cache = init_cache(cfg, b, cache_seq_len, device=x.device, mesh=par.mesh)
     src_pos, slots = _prefill_slots(cache.slots, s_in, x.device)
     descs, n_groups = block_structure(cfg)
+    cross = {j: [] for j, desc in enumerate(descs) if desc.cross}
     for g, group_p in enumerate(_groups(params["layers"], n_groups)):
         cache_g = _group(cache, g)
         for j, desc in enumerate(descs):
             path = f"layers/l{j}"
             x, _, c = apply_layer_seq(group_p[f"l{j}"], desc, x, cfg, positions,
-                                      window=cfg.sliding_window, collect_cache=True, par=par,
-                                      path=path)
-            k, v, kv_pos = par.prefill_kv(c.pop("k"), c.pop("v"), src_pos, slots, cache.slots,
-                                          par.heads(f"{path}/attn"))
+                                      window=cfg.sliding_window, enc_out=enc_out,
+                                      collect_cache=True, par=par, path=path)
             cj = cache_g[f"l{j}"]
-            cj["k"].copy_(k)
-            cj["v"].copy_(v)
-            cj["kv_pos"].copy_(kv_pos.expand_as(cj["kv_pos"]))
+            if desc.mixer == "attn":
+                k, v, kv_pos = par.prefill_kv(c.pop("k"), c.pop("v"), src_pos, slots,
+                                              cache.slots, par.heads(f"{path}/attn"))
+                cj["k"].copy_(k)
+                cj["v"].copy_(v)
+                cj["kv_pos"].copy_(kv_pos.expand_as(cj["kv_pos"]))
+            elif desc.mixer == "mamba":
+                cj["conv"].copy_(c["conv"])
+                cj["ssm"].copy_(c["ssm"])
+            else:
+                for key in ("tm_prev", "cm_prev"):
+                    cj[key].copy_(par.last_block(c[key], cj[key].shape[-1]))
+                cj["wkv"].copy_(c["wkv"])
+            if desc.cross:
+                cross[j].append((c["ck"], c["cv"]))
+    # the prefill's own tensors, as the one-process prefill puts them in
+    for j, kvs in cross.items():
+        cache[f"l{j}"]["ck"], cache[f"l{j}"]["cv"] = (torch.stack(t) for t in zip(*kvs))
     x = _apply_norm(params["final_norm"], x, cfg)
     logits = logits_from_x(params, cfg, x[:, -1:, :], par=par)[:, 0, :]
     return par.gather_rows(logits, b), cache, s_in

@@ -20,9 +20,35 @@ mesh's "model" group:
   collective;
 * a misaligned block: q/k/v columns that are not whole heads (``H`` or
   ``K`` not a multiple of "model", where ``_sanitize`` still cuts ``K·hd``
-  mid-head): the rank all-gathers that layer's attention leaves
-  (``blocks.gather_full``, counted in ``blocks.traffic``) and runs its
-  attention whole.
+  mid-head), or an RWKV time-mix whose ``w[rkvg]`` columns are not whole
+  heads: the rank all-gathers that layer's attention (or time-mix) leaves
+  (``blocks.gather_full``, counted in ``blocks.traffic``) and runs it whole.
+
+The recurrent and encoder-decoder families split the same way:
+
+* RWKV time-mix (:meth:`Plan.tm_heads`): ``w[rkvg]`` are column blocks of
+  whole heads, ``wo`` a row block, every other leaf replicated; the rank
+  runs ``_ddlerp`` whole, r, k, v, g on its columns, the decay, the bonus
+  and ``ln_x`` narrowed to its heads, ``rwkv6_scan`` on its heads from its
+  block of the ``wkv`` state, and sums ``wo``'s rows.  Channel-mix:
+  ``w_k``'s columns and ``w_v``'s rows make the hidden product a row sum;
+  ``w_r``'s columns are all-gathered (``sigmoid`` of the whole).
+  ``tm_prev`` and ``cm_prev`` hold the rank's d_model block, as
+  ``cache_specs`` places them; ``_ddlerp`` and ``w_k`` need the whole
+  previous row, so a decode step all-gathers both (:meth:`Plan.gather_last_many`).
+* Mamba (:meth:`Plan.mamba_split`): ``in_proj`` is a column block of the
+  concatenated (x, z) output, so a rank's columns are not its channels' x
+  and z; one all-to-all over "model" (:meth:`Plan.mamba_xz`) gives each
+  rank the x and z of its ``d_inner / model`` channels, on which every
+  channel leaf, the ``conv`` and ``ssm`` cache blocks and ``mamba_scan``
+  run; ``x_proj`` and ``out_proj`` are row blocks, summed in f32 (the
+  former before its split into dt, B and C).
+* The GELU MLP: ``w_in``, ``b_in`` columns, ``w_out`` rows summed, then
+  the replicated ``b_out`` added once.
+* Cross-attention: the rank's heads where they are whole (its ``ck``,
+  ``cv`` blocks are the heads it computes), else gathered whole as
+  self-attention is; the encoder's ``enc/proj`` and ``enc/pos`` column
+  blocks are all-gathered, its layers split as the decoder's.
 
 The residual stream stays whole on every rank of a "model" group: the
 column products that feed it (``embed``'s lookup, the projector's, ``head``'s
@@ -42,8 +68,7 @@ one softmax over every slot.  Where ``Sc % model`` is nonzero the slot axis
 is replicated: every rank writes every slot and attends over all of them
 with its own heads, and nothing is combined, so no slot counts twice.
 
-Families other than ``dense`` and ``vlm``, and MoE, are refused
-(:func:`refuse`).
+MoE is refused (:func:`refuse`).
 """
 from __future__ import annotations
 
@@ -57,20 +82,13 @@ from repro_torch.sharding import blocks
 from repro_torch.sharding import rules as R
 from repro_torch.tree import tree_leaves, tree_map
 
-SERVED_FAMILIES = ("dense", "vlm")
-
-
 def refuse(cfg) -> None:
     """``NotImplementedError`` naming its ROADMAP item for a config that
-    sharded serving does not take."""
+    sharded serving does not take: an MoE one."""
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE serving under a mesh (ROADMAP A14d3): experts over 'model' "
             "come after MoE training under a mesh (A14b2); serve it in one process")
-    if cfg.family not in SERVED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family under a mesh (ROADMAP A14d2): its recurrent "
-            "or cross-attention caches under cache_specs are not ported; serve it in one process")
 
 
 def check_backend(backend: str, device) -> None:
@@ -83,7 +101,11 @@ def check_backend(backend: str, device) -> None:
 def _row_partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in f32: on the card a bf16 or f16 product accumulates in
     f32 and is not rounded (cuBLAS's ``out_dtype``), elsewhere the product
-    in its dtype, then f32."""
+    in its dtype, then f32.  Mixed operands (a bf16 model's encoder fed f32
+    frames) are promoted first, as ``layers.dense`` promotes them."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return y.view(*x.shape[:-1], w.shape[-1])
@@ -105,13 +127,17 @@ class Plan:
         self.dp, self.m = shape
         coords = blocks.coordinates(mesh)
         self.di, self.r = coords["data"], coords["model"]
+        # the dim "model" cuts in each leaf, counted from the end (-1 its
+        # columns, -2 a 2-D leaf's rows), the group axis left out; None where
+        # the leaf is replicated
         self._cut = {}
 
         def one(path, spec):
             p = "/".join(map(str, path))
-            entries = tuple(spec)[1:] if p.startswith("layers/") else tuple(spec)
-            self._cut[p] = next((d for d, e in enumerate(entries) if "model" in R._axes(e)),
-                                None)
+            stacked = p.startswith("layers/") or "/layers/" in p
+            entries = tuple(spec)[1:] if stacked else tuple(spec)
+            self._cut[p] = next((d - len(entries) for d, e in enumerate(entries)
+                                 if "model" in R._axes(e)), None)
         R._map_with_path(one, specs)
 
     @functools.cached_property
@@ -130,24 +156,51 @@ class Plan:
             check_backend(dist.get_backend(group), device)
 
     # ------------------------------------------------------------ leaves ----
+    def _split(self, path: str, cols=(), rows=()) -> bool:
+        """Whether "model" (of more than one rank) cuts each leaf ``cols``
+        under ``path`` by its columns (a bias: its one dim) and each of
+        ``rows`` by its rows."""
+        cut = self._cut
+        return (self.m > 1 and all(cut[f"{path}/{k}"] == -1 for k in cols)
+                and all(cut[f"{path}/{k}"] == -2 for k in rows))
+
     def heads(self, path: str) -> bool:
-        """Whether the attention at ``path`` (``layers/l{j}/attn``) splits
-        into whole heads: q, k, v (and their biases) cut by columns into
-        whole heads, ``wo`` by rows.  Else it runs whole
-        (:meth:`whole_leaves`)."""
-        cfg, m, cut = self.cfg, self.m, self._cut
-        if m == 1 or cfg.n_heads % m or cfg.n_kv_heads % m:
+        """Whether the attention at ``path`` (``layers/l{j}/attn``,
+        ``layers/l{j}/cross``, ``enc/layers/attn``) splits into whole
+        heads: q, k, v (and their biases) cut by columns into whole heads,
+        ``wo`` by rows.  Else it runs whole (:meth:`whole_leaves`)."""
+        cfg, m = self.cfg, self.m
+        kv = cfg.n_heads if path.endswith("cross") else cfg.n_kv_heads
+        if m == 1 or cfg.n_heads % m or kv % m:
             return False
-        cols = [cut[f"{path}/w{x}"] for x in "qkv"]
-        bias = [cut[f"{path}/b{x}"] for x in "qkv" if f"{path}/b{x}" in cut]
-        return all(c == 1 for c in cols) and all(c == 0 for c in bias) and cut[f"{path}/wo"] == 0
+        bias = [f"b{x}" for x in "qkv" if f"{path}/b{x}" in self._cut]
+        return self._split(path, cols=["wq", "wk", "wv"] + bias, rows=["wo"])
 
     def ffn_split(self, path: str) -> bool:
-        """Whether the SwiGLU at ``path`` splits its hidden units: gate and
-        up by columns, down by rows."""
-        cut = self._cut
-        return (self.m > 1 and cut[f"{path}/w_gate"] == 1 and cut[f"{path}/w_up"] == 1
-                and cut[f"{path}/w_down"] == 0)
+        """Whether the FFN at ``path`` splits its hidden units: the SwiGLU's
+        gate and up (the GELU MLP's ``w_in`` and ``b_in``, RWKV channel-mix's
+        ``w_k``) by columns, its down (``w_out``, ``w_v``) by rows."""
+        for cols, rows in ((["w_gate", "w_up"], ["w_down"]), (["w_in", "b_in"], ["w_out"]),
+                           (["w_k"], ["w_v"])):
+            if f"{path}/{rows[0]}" in self._cut:
+                return self._split(path, cols, rows)
+        raise KeyError(f"{path}: no FFN leaves")
+
+    def tm_heads(self, path: str) -> bool:
+        """Whether the RWKV time-mix at ``path`` (``layers/l{j}/tm``) splits
+        into whole heads: ``w[rkvg]`` by columns, ``wo`` by rows, and the
+        head count a multiple of "model" (as the ``wkv`` cache's heads)."""
+        cfg = self.cfg
+        if (cfg.d_model // cfg.rwkv_head_dim) % self.m:
+            return False
+        return self._split(path, cols=["wr", "wk", "wv", "wg"], rows=["wo"])
+
+    def mamba_split(self, path: str) -> bool:
+        """Whether the Mamba mixer at ``path`` (``layers/l{j}/mamba``)
+        splits by channel: every channel leaf cut over "model", as the
+        ``conv`` and ``ssm`` cache blocks are."""
+        return self._split(path, cols=["in_proj", "conv", "conv_b", "dt_proj", "dt_bias", "D"],
+                           rows=["x_proj", "A_log", "out_proj"])
 
     def whole_leaves(self, tree: dict, path: str) -> dict:
         """The group's leaves of ``tree``, the sub-nest at ``path`` under
@@ -162,6 +215,37 @@ class Plan:
         """The whole of ``y``, whose last dim the "model" ranks split."""
         return blocks.all_gather_last(y, self.group, self.m)
 
+    def gather_last_many(self, ts: list) -> list:
+        """The whole of each of ``ts``, whose last dims the "model" ranks
+        split, in one all-gather (one dtype)."""
+        if self.m == 1:
+            return list(ts)
+        widths = [t.shape[-1] for t in ts]
+        got = blocks.all_gather(torch.cat(ts, -1), self.group, self.m)     # (m, ..., sum)
+        return [p.movedim(0, -2).reshape(*p.shape[1:-1], self.m * n)
+                for p, n in zip(got.split(widths, -1), widths)]
+
+    def last_block(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's block of ``n`` of ``t``'s last dim (``t`` itself where
+        ``n`` is all of it): a recurrent cache's d_model block."""
+        return t if n == t.shape[-1] else t.narrow(-1, self.r * n, n)
+
+    def mamba_xz(self, xz: torch.Tensor) -> tuple:
+        """``(x, z)`` of this rank's channels from its column block ``xz``
+        (..., 2n) of ``in_proj``'s concatenated (x, z) output.  The output's
+        2·model blocks of n columns are x's channel blocks, then z's; rank i
+        holds blocks 2i and 2i + 1, so it sends each to the rank whose
+        channels it holds (block q to rank q % model) in one all-to-all of
+        n-column parts (zeros where it holds nothing for a rank), and takes
+        its x from rank r // 2 and its z from rank (model + r) // 2."""
+        m, r = self.m, self.r
+        n = xz.shape[-1] // 2
+        parts = xz.new_zeros((m,) + xz.shape[:-1] + (n,))
+        for t in range(2):
+            parts[(2 * r + t) % m] = xz[..., t * n:(t + 1) * n]
+        got = blocks.all_to_all(parts, self.group, m)
+        return got[r // 2], got[(m + r) // 2]
+
     def row_sum(self, h: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
         """``h @ w`` over the rows of ``w`` this rank holds, summed over
         "model" in f32, cast to ``dtype`` once."""
@@ -171,7 +255,7 @@ class Plan:
         """``dense(x, w, b)`` whole from this rank's column block of ``w``
         (``b`` cut alike, or whole and narrowed here), all-gathered over
         "model"; from ``w`` whole where the rules left it so."""
-        if self._cut[wpath] != 1:
+        if self._cut[wpath] != -1:
             return dense(x, w, b)
         n = w.shape[-1]
         if b is not None and self._cut[bpath] is None:
@@ -182,14 +266,14 @@ class Plan:
         """The embedding rows of ``tokens`` from this rank's d_model block
         of ``embed``, all-gathered over "model"."""
         x = emb[tokens.long()]
-        return self.gather_last(x) if self._cut["embed"] == 1 else x
+        return self.gather_last(x) if self._cut["embed"] == -1 else x
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """``x @ head`` whole: ``head``'s vocab columns all-gathered, or a
         tied ``embed``'s d_model block (rows of ``embed.T``) summed."""
         if self.cfg.tie_embeddings:
             emb = params["embed"]
-            if self._cut["embed"] == 1:
+            if self._cut["embed"] == -1:
                 k = emb.shape[1]
                 return self.row_sum(x.narrow(-1, self.r * k, k), emb.T, x.dtype)
             return x @ emb.T

@@ -1119,10 +1119,12 @@ def test_jamba_trains_whole_over_nccl_on_four_cards(cuda, tmp_path):
                                               "chain": 56, "bwd": 28}
 
 
-# sharded serving over nccl (ROADMAP A14d): llama3-8b whole in bf16 on two
-# cards at ("data", "model") = (1, 2) and (2, 1), against one card; then
-# internvl2-76b on four cards at (1, 4), first cut to 24 layers (Z20a's
-# size) against one card, then whole.  Each rank serves on its own card
+# sharded serving over nccl (ROADMAP A14d, A14d2): llama3-8b, rwkv6-1.6b,
+# jamba-v0.1-52b as served (moe=None) and whisper-tiny whole in bf16 on two
+# cards at ("data", "model") = (1, 2) and (2, 1), against one card; then on
+# four cards at (1, 4) internvl2-76b, first cut to 24 layers (Z20a's size)
+# against one card, then whole, and jamba-v0.1-52b (moe=None) whole against
+# one card.  Each rank serves on its own card
 # (nccl, one rank a card), its weights drawn block by block
 # (init_params(..., mesh=, profile="inference")).  Bars: each teacher-forced
 # step's logits within SERVE_RTOL of its max |logit|, or within twice the
@@ -1144,10 +1146,26 @@ def _serve_batch(cfg, b, s, dev, seed=4):
     rng = np.random.default_rng(seed)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))
              .to(dev)}
-    if cfg.family == "vlm":
-        pe = rng.standard_normal((b, cfg.n_patches, cfg.d_frontend)).astype(np.float32)
-        batch["patch_embeds"] = torch.from_numpy(pe).to(dev, cfg.tdtype)
+    front = {"vlm": ("patch_embeds", cfg.n_patches), "encdec": ("frames", cfg.n_frames)}
+    if cfg.family in front:
+        key, n = front[cfg.family]
+        pe = rng.standard_normal((b, n, cfg.d_frontend)).astype(np.float32)
+        batch[key] = torch.from_numpy(pe).to(dev, cfg.tdtype)
     return batch
+
+
+def _serve_launches(cfg, n_new) -> tuple:
+    """``{kernel: n}`` of a prefill and of ``n_new`` decode steps of
+    ``cfg``: flash once an attention layer, cross-attention and encoder
+    layer at the prefill and never at decode; each scan once a layer of its
+    mixer at the prefill and in every step."""
+    descs, n_groups = T.block_structure(cfg)
+    flash = n_groups * sum((d.mixer == "attn") + d.cross for d in descs)
+    flash += cfg.n_enc_layers if cfg.family == "encdec" else 0
+    scans = {k: n_groups * sum(d.mixer == mixer for d in descs)
+             for k, mixer in (("rwkv6_scan", "rwkv"), ("mamba_scan", "mamba"))}
+    return ({"flash_attention": flash, **scans},
+            {"flash_attention": 0, **{k: n * n_new for k, n in scans.items()}})
 
 
 def _serve_steps(params, cfg, batch, slots, n_new, tokens=None, mesh=None):
@@ -1195,7 +1213,7 @@ def _hold_steps(got, want, want_tokens) -> dict:
             "fed_greedy": bool(torch.equal(want.argmax(-1)[:-1].T.int(), want_tokens))}
 
 
-def _serve_rank(rank, world, tmp, arch, changes, shape, b, prompt, n_new):
+def _serve_rank(rank, world, tmp, arch, shape, b, prompt, n_new):
     """A rank on card ``rank``: the one-card run on its own card (the same
     seeded weights and batch on every card, greedy), then its blocks on a
     ``shape`` ("data", "model") mesh and the same steps fed the one-card
@@ -1205,7 +1223,7 @@ def _serve_rank(rank, world, tmp, arch, changes, shape, b, prompt, n_new):
                                  timeout_s=600)
     try:
         mesh = LM.make_mesh_compat(shape, ("data", "model"))
-        cfg = dataclasses.replace(get_config(arch), **changes)
+        cfg = dataclasses.replace(get_config(arch), **SERVED.get(arch, {}))
         batch = _serve_batch(cfg, b, prompt, dev)
         slots = prompt + (cfg.n_patches if cfg.family == "vlm" else 0) + n_new
         params = T.init_params(0, cfg, device=dev)
@@ -1222,29 +1240,40 @@ def _serve_rank(rank, world, tmp, arch, changes, shape, b, prompt, n_new):
     return out
 
 
-def _check_serve_rank(r, n_layers):
+def _check_serve_rank(r, cfg, n_new=SERVE_NEW):
+    """A rank's hold (:func:`_hold_steps`) within its bar, and its
+    launches equal to the code's (:func:`_serve_launches`), flash on
+    ``wgmma_bf16``."""
     assert r["fed_greedy"]
     assert r["rel_err"] <= max(SERVE_RTOL, 2 * r["one_ulp_response"]), r
     assert r["clear_flips"] == 0, r
-    assert r["launches"]["prefill"]["flash_attention"] == {
-        **dict.fromkeys(r["launches"]["prefill"]["flash_attention"], 0), "wgmma_bf16": n_layers}
-    assert not any(sum(c.values()) for c in r["launches"]["decode"].values())
+    for when, want in zip(("prefill", "decode"), _serve_launches(cfg, n_new)):
+        got = r["launches"][when]
+        assert got["flash_attention"] == {**dict.fromkeys(got["flash_attention"], 0),
+                                          "wgmma_bf16": want["flash_attention"]}, when
+        assert {k: sum(c.values()) for k, c in got.items()} == {
+            k: want.get(k, 0) for k in got}, (when, got)
 
 
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-1.6b", "jamba-v0.1-52b", "whisper-tiny"])
 @pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
-def test_sharded_serving_over_nccl_on_two_cards(cuda, tmp_path, shape):
-    """llama3-8b whole in bf16, B 4 x 512 tokens, 8 steps: each card's
+def test_sharded_serving_over_nccl_on_two_cards(cuda, tmp_path, shape, arch):
+    """Each arch whole in bf16 (jamba as served, ``moe=None``), B 4 x 512
+    tokens (whisper over N(0, 1) frames), 8 steps: each card's
     teacher-forced logits within SERVE_RTOL of one card's, the greedy picks
-    equal where the margin allows, 32 flash forwards on ``wgmma_bf16`` at
-    the prefill (a rank's heads at (1, 2), its two rows at (2, 1)), none
-    at decode."""
+    equal where the margin allows, the kernels launched as the code says
+    (flash on ``wgmma_bf16`` at the prefill only; llama3-8b's 32 over a
+    rank's heads at (1, 2), its two rows at (2, 1); rwkv6_scan over a
+    rank's 16 heads, mamba_scan over its 4096 channels, whisper's 6 heads
+    over 3 a rank)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two cards: nccl puts each rank on a card of its own")
-    ranks = LM.spawn_ranks(_serve_rank, 2, (str(tmp_path), "llama3-8b", {}, shape, 4,
-                                            SERVE_PROMPT, SERVE_NEW), timeout_s=900)
-    print(f"sharded serving on two cards at {shape}:", ranks)
+    ranks = LM.spawn_ranks(_serve_rank, 2, (str(tmp_path), arch, shape, 4, SERVE_PROMPT,
+                                            SERVE_NEW), timeout_s=900)
+    print(f"sharded serving of {arch} on two cards at {shape}:", ranks)
+    cfg = dataclasses.replace(get_config(arch), **SERVED.get(arch, {}))
     for r in ranks:
-        _check_serve_rank(r, 32)
+        _check_serve_rank(r, cfg)
 
 
 def _profiled(fn) -> dict:
@@ -1378,7 +1407,8 @@ def test_internvl_serves_whole_over_nccl_on_four_cards(cuda, tmp_path):
     ranks = LM.spawn_ranks(_internvl_rank, 4, (str(tmp_path),), timeout_s=1500)
     print("internvl2-76b on four cards:", ranks)
     for r in ranks:
-        _check_serve_rank(r["layers24"], 24)
+        _check_serve_rank(r["layers24"], dataclasses.replace(get_config("internvl2-76b"),
+                                                             n_layers=24))
         whole = r["whole"]
         assert whole["tokens"] == ranks[0]["whole"]["tokens"]
         assert all(len(t) == INTERNVL_NEW for t in whole["tokens"])
@@ -1388,3 +1418,71 @@ def test_internvl_serves_whole_over_nccl_on_four_cards(cuda, tmp_path):
                 **dict.fromkeys(whole[key]["flash_attention"], 0), "wgmma_bf16": 80}, key
         assert not any(sum(c.values()) for c in whole["decode_launches"].values())
         assert 33 <= whole["block_gb"] <= 38, whole["block_gb"]
+
+
+def _jamba_serve_rank(rank, world, tmp):
+    """jamba-v0.1-52b as served (``moe=None``) whole on card ``rank`` of a
+    (1, 4) mesh: the one-card run on its own card, then its blocks drawn
+    block by block (their bytes, the init peak), the steps fed the one-card
+    tokens and held; then the prefill and the decode steps timed apart
+    between barriers, and the serving peak."""
+    from repro_torch.tree import tree_leaves
+    dev = LM.start_process_group("nccl", rank, world, f"file://{tmp}/rdv", device=f"cuda:{rank}",
+                                 timeout_s=900)
+    try:
+        mesh = LM.make_mesh_compat((1, 4), ("data", "model"))
+        cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), **SERVED["jamba-v0.1-52b"])
+        batch = _serve_batch(cfg, 4, SERVE_PROMPT, dev)
+        slots = SERVE_PROMPT + SERVE_NEW
+        params = T.init_params(0, cfg, device=dev)
+        want, tokens, _ = _serve_steps(params, cfg, batch, slots, SERVE_NEW)
+        ulp = _ulp_response(params, cfg, batch, slots, tokens, want)
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_params(0, cfg, device=dev, mesh=mesh, profile="inference")
+        torch.cuda.synchronize()
+        out = {"init_s": time.perf_counter() - t0,
+               "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "block_gb": sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9}
+        torch.cuda.reset_peak_memory_stats()
+        got, _, counts = _serve_steps(params, cfg, batch, slots, SERVE_NEW, tokens, mesh)
+        out.update(_hold_steps(got, want, tokens), launches=counts, one_ulp_response=ulp)
+        with torch.inference_mode():
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache, pos = T.prefill(params, cfg, batch, slots, mesh=mesh)
+            torch.cuda.synchronize()
+            out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(SERVE_NEW):
+                logits, cache = T.serve_step(params, cfg, cache, tokens[:, i:i + 1], pos + i,
+                                             mesh=mesh)
+            torch.cuda.synchronize()
+            out["decode_ms_per_token"] = 1e3 * (time.perf_counter() - t0) / SERVE_NEW
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def test_jamba_serves_whole_over_nccl_on_four_cards(cuda, tmp_path):
+    """jamba-v0.1-52b as served (``moe=None``: 32 layers, 9.18 B parameters,
+    18.4 GB in bf16) on four cards at (1, 4), B 4 x 512 tokens, 8 steps: each
+    card's teacher-forced logits within SERVE_RTOL of one card's (or twice
+    its one-ulp response), the greedy picks equal where the margin allows,
+    4 flash forwards on ``wgmma_bf16`` at the prefill, ``mamba_scan`` 28 at
+    the prefill and 28 a step on the rank's 2048 channels; a quarter of the
+    weights a card (4.595 GB: every cut leaf a quarter, the norms whole)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: nccl puts each rank on a card of its own")
+    ranks = LM.spawn_ranks(_jamba_serve_rank, 4, (str(tmp_path),), timeout_s=900)
+    print("jamba-v0.1-52b (moe=None) on four cards:", ranks)
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), **SERVED["jamba-v0.1-52b"])
+    for r in ranks:
+        _check_serve_rank(r, cfg)
+        assert 4.5 <= r["block_gb"] <= 4.7, r["block_gb"]

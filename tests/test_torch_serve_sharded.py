@@ -33,8 +33,10 @@ block by block:
 * ``init_params(mesh=)`` bit for bit ``shard_tree(init_params(...))`` in
   both profiles, no stacked leaf ever whole; ``init_train_state(mesh=)``
   the same blocks;
-* the refusals: rwkv6-1.6b, jamba-v0.1-52b, whisper-tiny (A14d2) and
-  deepseek-moe-16b (A14d3) under a mesh; nccl off the card.
+* the refusals: the MoE configs (deepseek-moe-16b, qwen3-moe-235b-a22b and
+  jamba-v0.1-52b with its MoE: A14d3) under a mesh; nccl off the card.  The
+  ssm, hybrid and encdec families are served in
+  ``test_torch_serve_sharded_recurrent.py``.
 
 31.7 s of test time in a 6-worker run with `--dist loadfile` (the
 reference's compiles beside the ranks), about 22 s alone.
@@ -53,7 +55,7 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 
-from repro_torch.configs import SERVED, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -83,8 +85,10 @@ EDGES = {"misaligned": ("llama3.2-3b", {"n_kv_heads": 2}, "1x4", B, SLOTS),
 ENGINES = {"llama_2x2": ("llama3.2-3b", "2x2", (10, 7, 3, 9), (6, 4, 6, 5)),
            "internvl_1x4": ("internvl2-76b", "1x4", (8, 5, 10, 2), (5, 6, 3, 6)),
            "qwen_2x2_three": ("qwen2-72b", "2x2", (9, 4, 6), (6, 6, 2))}
-REFUSED = {"rwkv6-1.6b": "A14d2", "jamba-v0.1-52b": "A14d2", "whisper-tiny": "A14d2",
-           "deepseek-moe-16b": "A14d3"}
+# the configs sharded serving refuses: (arch, config changes, ROADMAP item)
+REFUSED = {"deepseek-moe-16b": ("deepseek-moe-16b", {}, "A14d3"),
+           "qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", {}, "A14d3"),
+           "jamba-v0.1-52b-with-moe": ("jamba-v0.1-52b", {}, "A14d3")}
 
 REFERENCE = """
 import dataclasses, pickle, sys
@@ -470,13 +474,14 @@ def test_block_init_never_stacks_a_whole_leaf(monkeypatch, profile):
     assert [tuple(t.shape) for t in tree_leaves(params["layers"])] == want
 
 
-@pytest.mark.parametrize("arch", sorted(REFUSED))
-def test_a_family_sharded_serving_does_not_take_is_refused(arch):
-    """jamba as served (``configs.SERVED``: ``moe=None``), so its family is
-    what is refused; with its MoE it names A14d3 first."""
-    cfg = dataclasses.replace(reduced(get_config(arch), dtype="float32"), **SERVED.get(arch, {}))
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_a_family_sharded_serving_does_not_take_is_refused(case):
+    """Every MoE config, jamba with its MoE too (as served, ``moe=None``, it
+    is served), names A14d3."""
+    arch, changes, item = REFUSED[case]
+    cfg = dataclasses.replace(reduced(get_config(arch), dtype="float32"), **changes)
+    assert cfg.moe is not None
     at = At("2x2", {"data": 0, "model": 0})
-    item = REFUSED[arch]
     with pytest.raises(NotImplementedError, match=item):
         T.prefill(None, cfg, {"tokens": torch.zeros((4, 3), dtype=torch.int32)}, 8, mesh=at)
     with pytest.raises(NotImplementedError, match=item):

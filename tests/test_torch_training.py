@@ -12,7 +12,9 @@ differences of the convolutions' backward passes); the data bit for bit.
 The reference's functions run under ``jax.jit``, as its training loops run
 them: one compile each, where run op by op each primitive compiles.
 """
+import importlib.util
 import itertools
+import pathlib
 
 import pytest
 
@@ -204,6 +206,59 @@ def test_finetune_matches_the_reference_from_its_state(pair):
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves(tp), tree_leaves(vgg_params_from_numpy(
             tm, jax.tree.map(np.asarray, jp), device="cpu"))))
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_the_replay_branch_loss_is_the_task_loss(pair, ref_task_losses, chip_smoke, split):
+    """``chip_smoke.branch_loss``, which Z12's finetune replay differentiates
+    on the card's branch, is ``task_loss`` (mse, with an AE): on the branch
+    it finds and on that branch given back, the same loss and gradient bit
+    for bit, the reference's loss at LOSS_RTOL; ``branch_moves`` sees a
+    ReLU sent the other way and a pool on another element, each at its
+    distance from the CPU's choice over the layer's max |input|."""
+    jm, jp, tm, tp = pair
+    ae = ae_from_numpy(jax.tree.map(np.asarray, _ref_ae(jm, jp, split)), device="cpu")
+    x, y = (torch.from_numpy(a) for a in JD.toy_images(8, hw=16, seed=3))
+    state = {"params": tp, "ae": ae}
+    found = []
+    loss, g = TB.value_and_grad(lambda st: TB.task_loss(tm, st["params"], st["ae"], split, x, y),
+                                state)
+    for kw in ({"record": found}, {"branch": found}):
+        got, got_g = TB.value_and_grad(
+            lambda st: chip_smoke.branch_loss(tm, st, split, x, y, **kw), state)
+        assert float(got) == float(loss)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got_g), tree_leaves(g)))
+    if split == 6:
+        want = ref_task_losses[("mse", True)]
+        assert abs(float(loss) - want) <= LOSS_RTOL * abs(want)
+    assert chip_smoke.branch_moves(found, found) == {"flips": 0, "moves": 0, "rel": 0.0}
+    at_relu = next(i for i, r in enumerate(found) if r[0] == "relu")
+    at_pool = next(i for i, r in enumerate(found) if r[0] == "pool")
+    moved = list(found)
+    _, mask, v = found[at_relu]
+    i = int(v.abs().flatten().argmin())
+    flipped = mask.clone().flatten()
+    flipped[i] = ~flipped[i]
+    moved[at_relu] = ("relu", flipped.view_as(mask), v)
+    _, idx, pv = found[at_pool]
+    other = idx.clone()
+    other[0, 0, 0, 0] = idx[0, 0, 0, 0] ^ 1          # the window's other column
+    moved[at_pool] = ("pool", other, pv)
+    flat = pv.permute(0, 3, 1, 2).flatten(2)
+    pool_rel = float((flat[0, 0, idx[0, 0, 0, 0]] - flat[0, 0, other[0, 0, 0, 0]]).abs()
+                     / pv.abs().max())
+    seen = chip_smoke.branch_moves(moved, found)
+    assert (seen["flips"], seen["moves"]) == (1, 1)
+    assert seen["rel"] == max(float(v.flatten()[i].abs() / v.abs().max()), pool_rel)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 7])
